@@ -12,10 +12,14 @@ present, or when the port's sources are not beside it.
    versions, and builds every CUDA kernel from ``csrc/`` (seconds, ptxas).
 2. K1 phase: the port's ``ops.iir.lfilter`` on a (128, 183120) f32 signal
    (60 s at 3052 Hz) with an order-8 Butterworth band and an initial
-   state, the route that launches the ``iir_df2t`` kernel. Checks that the
-   kernel launched, holds y and zf against SciPy in float64 (rtol 1e-3,
-   atol 1e-3), holds the kernel against its plain torch version on the
-   card at that shape and at (128, 2*4096+37), and times both.
+   state, the route that launches the three-pass ``iir_df2t`` kernel.
+   Checks that the kernel launched, holds y and zf against SciPy in
+   float64 (rtol 1e-3, atol 1e-3), holds the kernel against its plain
+   torch version (``lfilter_chunked_reference``) on the card within 1e-6
+   at that shape and at (128, 2*4096+37), and against the serial plain
+   recurrence within 1e-3 at the latter; runs a 20-tap FIR (order 19, the
+   generic instance) against SciPy and the plain version; times the
+   kernel, each of its passes and the plain version.
 3. Serving phase at the paper's widths (CNN-RNN tone and CNN syllable
    models on 6 channels each, SynthesisLite on 20, 200-sample epochs,
    4 tones, 8 syllables, mel_dim 2560, Griffin-Lim at sr 24414 with n_fft
@@ -63,29 +67,16 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def time_ms(fn, warmup: int = 2, runs: int = 20) -> float:
-    """Median milliseconds of ``fn`` over ``runs`` calls, each bracketed by
-    CUDA events, after ``warmup`` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+def max_err(got, want) -> float:
+    """Largest absolute difference over paired tensors (y, zf)."""
+    return max((g - w).abs().max().item() for g, w in zip(got, want))
 
 
 def k1_phase(card: str) -> dict:
     import scipy.signal as sps
     import torch
 
+    from decode_tonal_langauge_tpu_torch._timing import kernel_ms, time_ms
     from decode_tonal_langauge_tpu_torch.ops import cuda_iir, iir
 
     rows, t = 128, 183120
@@ -112,45 +103,75 @@ def k1_phase(card: str) -> dict:
           and np.allclose(zf_np, ref_zf, rtol=1e-3, atol=1e-3),
           f"K1 vs scipy float64: max abs err {scipy_err}")
 
-    # Kernel against its plain version on the card. Both round every
-    # product and sum on its own in the same order, so they should agree
-    # bit for bit; 1e-6 absolute (outputs are O(1)) leaves room for no
-    # more than a last-bit difference.
+    # Kernel against its plain version (the same three passes in torch)
+    # on the card. Both round every product and sum on its own in the same
+    # order, so they should agree bit for bit; 1e-6 absolute (outputs are
+    # O(1)) leaves room for no more than a last-bit difference. Against
+    # the serial recurrence the rounding differs: 1e-3, SciPy's tolerance.
     tol = 1e-6
-
-    def kernel_vs_plain(xs, zs):
-        yk, zk = cuda_iir.lfilter_cuda(b, a, xs, zi=zs)
-        yp, zp = cuda_iir.lfilter_reference(b, a, xs, zi=zs)
-        return max((yk - yp).abs().max().item(), (zk - zp).abs().max().item())
-
     t_tail = 2 * 4096 + 37
     xs = torch.from_numpy(
         rng.standard_normal((rows, t_tail)).astype(np.float32)).cuda()
     zs = torch.from_numpy(
         (iir.lfilter_zi(b, a)[None, :] * x[:, :1]).astype(np.float32)).cuda()
-    err_tail = kernel_vs_plain(xs, zs)
+    got = cuda_iir.lfilter_cuda(b, a, xs, zi=zs)
+    err_tail = max_err(got, cuda_iir.lfilter_chunked_reference(b, a, xs, zi=zs))
     check(err_tail <= tol, f"K1 kernel vs plain at {rows}x{t_tail}: {err_tail}")
+    err_serial = max_err(got, cuda_iir.lfilter_reference(b, a, xs, zi=zs))
+    check(err_serial <= 1e-3,
+          f"K1 kernel vs serial plain at {rows}x{t_tail}: {err_serial}")
 
-    ms = time_ms(lambda: cuda_iir.lfilter_cuda(b, a, xd, zi=zid))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    yp, zp = cuda_iir.lfilter_reference(b, a, xd, zi=zid)
+    plain = cuda_iir.lfilter_chunked_reference(b, a, xd, zi=zid)
     end.record()
     torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)  # one run: ~6 launches a step
-    err_main = max((y - yp).abs().max().item(), (zf - zp).abs().max().item())
+    plain_ms = start.elapsed_time(end)  # one run: thousands of small launches
+    err_main = max_err((y, zf), plain)
     check(err_main <= tol, f"K1 kernel vs plain at {rows}x{t}: {err_main}")
+
+    # An order above the register instances: a 20-tap FIR (order 19) with
+    # a seeded state, through lfilter, against SciPy and the plain version.
+    fir = sps.firwin(20, 0.3)
+    zi_fir = 0.1 * rng.standard_normal((rows, len(fir) - 1))
+    zfd = torch.from_numpy(zi_fir.astype(np.float32)).cuda()
+    got = iir.lfilter(fir, [1.0], xd, zi=zfd)
+    ref_f = sps.lfilter(fir, [1.0], x.astype(np.float64), zi=zi_fir, axis=-1)
+    fir_scipy_err = max(np.abs(g.cpu().numpy() - r).max() for g, r in zip(got, ref_f))
+    check(all(np.allclose(g.cpu().numpy(), r, rtol=1e-3, atol=1e-3)
+              for g, r in zip(got, ref_f)),
+          f"K1 order-19 FIR vs scipy float64: max abs err {fir_scipy_err}")
+    err_fir = max_err(got, cuda_iir.lfilter_chunked_reference(fir, [1.0], xd, zi=zfd))
+    check(err_fir <= tol, f"K1 order-19 FIR kernel vs plain: {err_fir}")
+
+    # The kernel's time is its three passes as the profiler saw them;
+    # call_ms is one wrapper call made back to back with others, host work
+    # included.
+    main_call = lambda: cuda_iir.lfilter_cuda(b, a, xd, zi=zid)  # noqa: E731
+    fir_call = lambda: cuda_iir.lfilter_cuda(fir, [1.0], xd, zi=zfd)  # noqa: E731
+    pass_ms = kernel_ms(main_call, cuda_iir.PASS_KERNELS)
+    fir_passes = kernel_ms(fir_call, cuda_iir.PASS_KERNELS)
+    check(pass_ms is not None and fir_passes is not None,
+          "torch.profiler saw no device time for one of K1's passes")
+    ms, fir_ms = sum(pass_ms), sum(fir_passes)
+    call_ms = time_ms(main_call)
 
     n_bytes = 4 * (2 * rows * t + 2 * rows * order)  # x, zi in; y, zf out
     n_ops = rows * t * (2 + 4 * order)  # y: mul + add; a state: 2 mul + 2 add
     bound_bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
     bound_ops_ms = n_ops / PEAK_F32_FLOPS * 1e3
-    print(f"K1 iir_df2t {rows}x{t} order {order}: launches {launches}, "
-          f"scipy max abs err {scipy_err:.3g}, kernel vs plain max abs err "
-          f"{err_main:.3g} (main) {err_tail:.3g} ({rows}x{t_tail}), "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
-          f"{max(bound_bytes_ms, bound_ops_ms):.4f} ms [{card}]")
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    print(f"K1 iir_df2t {rows}x{t} order {order} chunk {cuda_iir.CHUNK}: "
+          f"launches {launches}, scipy max abs err {scipy_err:.3g}, kernel "
+          f"vs plain max abs err {err_main:.3g} (main) {err_tail:.3g} "
+          f"({rows}x{t_tail}), vs serial plain {err_serial:.3g}; kernel "
+          f"{ms:.4f} ms (passes {' + '.join(f'{v:.4f}' for v in pass_ms)} ms, "
+          f"torch.profiler), wrapper call {call_ms:.4f} ms, plain "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms [{card}]")
+    print(f"K1 iir_df2t {rows}x{t} 20-tap FIR (order 19, generic instance): "
+          f"scipy max abs err {fir_scipy_err:.3g}, kernel vs plain "
+          f"{err_fir:.3g}, kernel {fir_ms:.4f} ms [{card}]")
     return {
         "name": "iir_df2t",
         "route": "cuda",
@@ -158,13 +179,18 @@ def k1_phase(card: str) -> dict:
         "replaces": "decode_tonal_langauge_tpu/ops/pallas_iir.py:71",
         "tpu_kernel": "ops/pallas_iir.py:_build_call",
         "launches": launches,
-        "max_abs_err": max(err_main, err_tail),
-        "max_abs_err_vs_plain": max(err_main, err_tail),
+        "max_abs_err": max(err_main, err_tail, err_fir),
+        "max_abs_err_vs_serial": err_serial,
+        "max_abs_err_vs_scipy": max(scipy_err, fir_scipy_err),
         "ms": ms,
+        "pass_ms": pass_ms,
+        "call_ms": call_ms,  # one wrapper call, back to back, host included
+        "chunk": cuda_iir.CHUNK,
         "plain_ms": plain_ms,
-        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "bound_ms": bound_ms,
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None,  # no single PyTorch call computes lfilter with zi
+        "fir19_ms": fir_ms,
     }
 
 

@@ -13,8 +13,8 @@ This slice covers the serving path:
       -> NNLS + Griffin-Lim waveforms
 
 (``serving.py``), plus ``ops/iir.py`` whose long, stateful, high-order
-route runs the hand-written sm_90a DF2T kernel (``csrc/iir_df2t.cu``,
-bound in ``ops/cuda_iir.py``).
+route runs the hand-written sm_90a DF2T kernel, a time-chunked
+three-pass scan (``csrc/iir_df2t.cu``, bound in ``ops/cuda_iir.py``).
 
 Entry points take ``device=None``, which means CUDA; they raise when no
 card is present and run on the CPU only when asked (``device="cpu"``).

@@ -13,9 +13,10 @@ Application runs on the tensor's device:
     zero-state response as a Toeplitz matmul, a short scan over blocks,
     the homogeneous term as one matmul, and the ragged tail through the
     recurrence;
-  - order > 2 with an initial state has no blocked form; it runs the
-    exact recurrence as the hand-written CUDA kernel (``ops/cuda_iir.py``)
-    on a CUDA f32 tensor, else the plain recurrence with a warning;
+  - order > 2 with an initial state has no blocked form; in f32 it runs
+    the exact recurrence as a time-chunked scan (``ops/cuda_iir.py``): the
+    hand-written CUDA kernel on a card, its plain torch version on the
+    CPU; other dtypes run the serial recurrence with a warning;
   - zero-phase filtering multiplies by the exact ``|H(f)|^2`` in the
     frequency domain (pow-2 padded rFFT).
 
@@ -168,7 +169,7 @@ def lfilter(b, a, x: torch.Tensor, zi=None, axis: int = -1):
     Long signals route to the block-state decomposition: directly up to
     biquad order, via a tf2sos biquad cascade above it with no initial
     state. Above biquad order WITH an initial state, the exact recurrence
-    runs as the CUDA kernel (``ops/cuda_iir.py``).
+    runs as the chunked scan of ``ops/cuda_iir.py`` (f32).
     """
     x_moved = x.movedim(axis, -1)
     order = max(len(np.atleast_1d(b)), len(np.atleast_1d(a))) - 1
@@ -186,11 +187,10 @@ def lfilter(b, a, x: torch.Tensor, zi=None, axis: int = -1):
         return y.movedim(-1, axis)
     if x_moved.shape[-1] > IIR_SCAN_LIMIT:
         # order > 2 with zi: a tf-form initial state has no per-biquad
-        # decomposition, so the blocked cascade cannot honor it. The exact
-        # recurrence runs as the CUDA kernel on a CUDA f32 tensor.
+        # decomposition, so the blocked cascade cannot honor it. In f32 the
+        # exact recurrence runs as the chunked scan: the CUDA kernel on a
+        # card, its plain torch version on the CPU.
         if x_moved.dtype == torch.float32:
-            if x_moved.device.type != "cuda":
-                _warn_sequential(order, x_moved.shape[-1])
             y, zf = lfilter_cuda(b, a, x_moved.contiguous(), zi=zi)
             return y.movedim(-1, axis), zf
         _warn_sequential(order, x_moved.shape[-1])
@@ -206,8 +206,8 @@ def _warn_sequential(order: int, t: int) -> None:
     warnings.warn(
         f"lfilter: order-{order} filter with zi on a {t}-sample signal runs "
         "the sequential timestep scan (no blocked path exists for tf-form "
-        "initial state above biquad order, and the CUDA kernel needs a "
-        "float32 tensor on a card); expect it to be slow. Split the filter "
+        "initial state above biquad order, and the chunked scan takes "
+        "float32 only); expect it to be slow. Split the filter "
         "into SOS sections with per-section zi, or pass zi=None to use the "
         "blocked biquad cascade.",
         stacklevel=3,

@@ -72,11 +72,11 @@ class TestK1Plain:
 
     def test_wrapper_uses_plain_version_on_cpu(self):
         b, a = BAND8
-        x = _sig(2, 300)
+        x = _sig(2, cuda_iir.CHUNK + 100)  # two chunks
         zi = np.ones((2, 8), np.float32)
         before = cuda_iir.LAUNCHES
         y, zf = cuda_iir.lfilter_cuda(b, a, _t(x), zi=_t(zi))
-        ry, rzf = cuda_iir.lfilter_reference(b, a, _t(x), zi=_t(zi))
+        ry, rzf = cuda_iir.lfilter_chunked_reference(b, a, _t(x), zi=_t(zi))
         assert torch.equal(y, ry) and torch.equal(zf, rzf)
         assert cuda_iir.LAUNCHES == before  # no kernel launch on the CPU
 
@@ -86,23 +86,89 @@ class TestK1Plain:
         _close(y, x * 0.5, 0, 0)
 
 
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    """The sm_90a kernel against its plain version on the card (built
-    from csrc/ at first use). Tolerance 1e-6: both round each product
-    and sum on its own in the same order."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    b, a = BAND8
-    x = _t(_sig(130, 2 * 4096 + 37)).cuda()
-    zi = _t((sps.lfilter_zi(b, a)[None] * _sig(130, 1)).astype(np.float32)).cuda()
-    before = cuda_iir.LAUNCHES
-    y, zf = cuda_iir.lfilter_cuda(b, a, x, zi=zi)
-    torch.cuda.synchronize()
-    assert cuda_iir.LAUNCHES == before + 1
-    ry, rzf = cuda_iir.lfilter_reference(b, a, x, zi=zi)
-    _close(y.cpu(), ry.cpu(), 0, 1e-6)
-    _close(zf.cpu(), rzf.cpu(), 0, 1e-6)
+CHUNK_FILTERS = {
+    "band4": sps.butter(2, [0.1, 0.4], btype="bandpass"),
+    "band6": sps.butter(3, [0.1, 0.4], btype="bandpass"),
+    "band8": BAND8,
+    "fir20": (sps.firwin(20, 0.3), np.array([1.0])),  # order 19
+}
+
+
+def _chunk_inputs(name, t, with_zi, rows=2):
+    """Seeded x and zi: the steady state times x[0] for an IIR band, a
+    small random state for the FIR."""
+    b, a = CHUNK_FILTERS[name]
+    x = _sig(rows, t)
+    if not with_zi:
+        return b, a, x, None
+    if len(a) == 1:
+        zi = 0.1 * np.random.default_rng(1).standard_normal((rows, len(b) - 1))
+    else:
+        zi = sps.lfilter_zi(b, a)[None] * x[:, :1]
+    return b, a, x, zi.astype(np.float32)
+
+
+class TestK1Chunked:
+    """The plain version of the three-pass chunked kernel (what the CPU
+    runs) against JAX ``ops.iir.lfilter`` (its serial scan at these
+    lengths), SciPy in float64 and the serial plain recurrence. Tolerance
+    rtol/atol 1e-3, that of the Pallas kernel's own SciPy test
+    (``tests/test_ops_signal.py``)."""
+
+    @pytest.mark.parametrize("with_zi", [True, False], ids=["zi", "no-zi"])
+    @pytest.mark.parametrize(
+        "t,chunk",
+        [(3 * 64, 64), (3 * 64 + 17, 64), (64 - 9, 64),
+         (2 * cuda_iir.CHUNK + 37, cuda_iir.CHUNK)],
+        ids=["exact", "ragged", "single", "default-chunk"],
+    )
+    @pytest.mark.parametrize("name", list(CHUNK_FILTERS))
+    def test_matches_jax_scipy_and_serial(self, name, t, chunk, with_zi, monkeypatch):
+        monkeypatch.setattr(cuda_iir, "CHUNK", chunk)
+        b, a, x, zi = _chunk_inputs(name, t, with_zi)
+        zi_t = None if zi is None else _t(zi)
+        ours = cuda_iir.lfilter_chunked_reference(b, a, _t(x), zi=zi_t)
+        serial = cuda_iir.lfilter_reference(b, a, _t(x), zi=zi_t)
+        theirs = jiir.lfilter(b, a, x, zi=zi)
+        ref = sps.lfilter(b, a, x.astype(np.float64), axis=-1,
+                          zi=None if zi is None else zi.astype(np.float64))
+        if not with_zi:
+            ours, serial, theirs, ref = ((v, None) for v in (ours, serial, theirs, ref))
+        for y, zf in (theirs, ref, serial):
+            _close(ours[0], y, 1e-3, 1e-3)
+            if with_zi:
+                _close(ours[1], zf, 1e-3, 1e-3)
+
+    @pytest.mark.parametrize("name", ["band8", "fir20"])
+    def test_single_chunk_is_the_serial_recurrence(self, name):
+        """One chunk enters with zi itself: pass 3 is then the serial
+        recurrence, to the bit."""
+        b, a, x, zi = _chunk_inputs(name, cuda_iir.CHUNK - 9, True)
+        y, zf = cuda_iir.lfilter_chunked_reference(b, a, _t(x), zi=_t(zi))
+        sy, szf = cuda_iir.lfilter_reference(b, a, _t(x), zi=_t(zi))
+        assert torch.equal(y, sy) and torch.equal(zf, szf)
+
+    @pytest.mark.parametrize("chunk", [1, 64, 256])
+    @pytest.mark.parametrize("name", ["band4", "band8", "fir20"])
+    def test_carry_matrix_matches_stepping(self, name, chunk):
+        """P against a step-by-step f64 zero-input run from a random state
+        (the same map summed in another order: rtol 1e-9), and against
+        A^chunk of the JAX package's state-space form by repeated squaring
+        (cancellation in the transient growth of A^k: 1e-8 of max |P|)."""
+        _, an = cuda_iir._normalised(*CHUNK_FILTERS[name])
+        P = cuda_iir.carry_matrix(tuple(an.tolist()), chunk)
+        a32 = an.astype(np.float32).astype(np.float64)  # the kernel's a
+        m = an.size - 1
+        s0 = np.random.default_rng(2).standard_normal(m)
+        s = s0.copy()
+        for _ in range(chunk):
+            y = s[0]  # y = b0 * 0 + s_0
+            s = np.array([(s[i + 1] if i + 1 < m else 0.0) - a32[i + 1] * y
+                          for i in range(m)])
+        np.testing.assert_allclose(P @ s0, s, rtol=1e-9, atol=1e-18)
+        A, _, _ = jiir._ba_state_space(np.r_[1.0, np.zeros(m)], a32)
+        np.testing.assert_allclose(P, np.linalg.matrix_power(A, chunk), rtol=0,
+                                   atol=1e-8 * max(1.0, np.abs(P).max()))
 
 
 class TestRoutes:
@@ -146,8 +212,25 @@ class TestRoutes:
             _close(zf, ref_zf, 1e-2, 1e-3)
         _close(ours, theirs, *tol)
         _close(ours, ref, *tol)
-        k1_route = t > tiir.IIR_SCAN_LIMIT and with_zi and len(a) > 3
-        assert any("timestep scan" in str(w.message) for w in caught) == k1_route
+        # In f32 the K1 route runs the chunked scan, on the CPU too: no
+        # route here runs the warned-about timestep scan.
+        assert not any("timestep scan" in str(w.message) for w in caught)
+
+    def test_lfilter_warns_only_for_the_serial_scan(self):
+        """Above IIR_SCAN_LIMIT with zi at order 8, f32 takes the chunked
+        scan without a warning; f64 runs the serial scan and warns."""
+        b, a = BAND8
+        x = _sig(2, 8300)
+        zi = sps.lfilter_zi(b, a)[None] * x[:, :1]
+        ref, ref_zf = sps.lfilter(b, a, x.astype(np.float64), zi=zi, axis=-1)
+        for dtype, warns in ((torch.float32, False), (torch.float64, True)):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                y, zf = tiir.lfilter(b, a, _t(x).to(dtype), zi=_t(zi).to(dtype))
+            assert y.dtype == dtype
+            assert any("timestep scan" in str(w.message) for w in caught) == warns
+            _close(y, ref, 1e-3, 1e-3)
+            _close(zf, ref_zf, 1e-3, 1e-3)
 
     def test_lfilter_axis(self):
         b, a = BAND8
