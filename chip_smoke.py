@@ -20,7 +20,20 @@ present, or when the port's sources are not beside it.
    recurrence within 1e-3 at the latter; runs a 20-tap FIR (order 19, the
    generic instance) against SciPy and the plain version; times the
    kernel, each of its passes and the plain version.
-3. Serving phase at the paper's widths (CNN-RNN tone and CNN syllable
+3. Preprocess phase: the stage's entry point ``preprocess.main.run`` on
+   the card over one subject of two blocks, each 128 channels x 60 s of
+   seeded noise plus a passthrough audio track, at 3052 Hz (the polyphase
+   conv route) and at the TDT rate 3051.7578125 Hz (the gather route),
+   with the example chain: downsample to 400 Hz, a 70-150 Hz Hilbert
+   envelope band and a 0.3-100 Hz order-4 Butterworth band, z-score over
+   [0, 25] s. Checks the block files, rates, shapes and finiteness; holds
+   the card's block against the port on the CPU (rtol/atol 1e-3) and a
+   SciPy/numpy chain (correlation >= 0.99 outside the first and last 5 s);
+   prints the stage's wall time, recording-seconds/s of
+   ``preprocess_signal``, each step's device time, the top device
+   operations of one call (``torch.profiler``) and how many times K1
+   launched (none: the stage is not on K1's path).
+4. Serving phase at the paper's widths (CNN-RNN tone and CNN syllable
    models on 6 channels each, SynthesisLite on 20, 200-sample epochs,
    4 tones, 8 syllables, mel_dim 2560, Griffin-Lim at sr 24414 with n_fft
    2048, hop 512, 32 iterations) with seeded random weights: the serving
@@ -28,7 +41,7 @@ present, or when the port's sources are not beside it.
    window 200, hop 40: 596 windows), then the same epoch decode on the
    card and on the CPU, which must agree. Prints trials/s, windows/s and
    waves/s beside the card's name and power limit.
-4. Prints the ``kernels`` JSON line, then the final ``ok`` JSON line.
+5. Prints the ``kernels`` JSON line, then the final ``ok`` JSON line.
 """
 
 from __future__ import annotations
@@ -192,6 +205,210 @@ def k1_phase(card: str) -> dict:
         "library_ms": None,  # no single PyTorch call computes lfilter with zi
         "fir19_ms": fir_ms,
     }
+
+
+PRE_CHANNELS, PRE_SECONDS, PRE_TARGET, AUDIO_SF = 128, 60, 400, 24414.0
+# 3052 Hz takes the polyphase conv route (up 100, down 763); the TDT rate
+# 3051.7578125 Hz the gather route (up 1109, down 8461).
+PRE_RATES = (3052.0, 3051.7578125)
+PRE_STEPS = [
+    {"module": "preprocess.downsample", "params": {"downsample_freq": PRE_TARGET}},
+    {"module": "preprocess.frequency_filter", "params": {"bands": [
+        {"method": "hilbert", "params": {"freq_ranges": [70, 150], "envelope": True}},
+        {"method": "butter", "params": {"freqs": [0.3, 100], "order": 4}},
+    ]}},
+    {"module": "preprocess.zscore_rereference",
+     "params": {"rereference_interval": [0.0, 25.0]}},
+]
+
+
+def write_blocks(raw_dir: str, raw_sf: float, channels: int, seconds: int,
+                 rng) -> list:
+    """Two blocks of seeded standard-normal ECoG (channels x seconds at
+    raw_sf) with a passthrough audio track, in the npz layout."""
+    paths = []
+    for block in (1, 2):
+        path = os.path.join(raw_dir, "Sub1", f"HS1-B{block}")
+        os.makedirs(path)
+        ecog = rng.standard_normal((channels, int(seconds * raw_sf)), dtype=np.float32)
+        audio = rng.standard_normal((1, int(seconds * AUDIO_SF)), dtype=np.float32)
+        np.savez(os.path.join(path, "raw.npz"), ecog=ecog, audio=audio,
+                 ecog_sf=raw_sf, audio_sf=AUDIO_SF)
+        paths.append(path)
+    return paths
+
+
+def stage_config(raw_dir: str, out_dir: str) -> dict:
+    return {"preprocess": {"module": "preprocess_main", "params": {
+        "pipeline": {"module": "preprocess.pipelines.subject_block", "params": {
+            "subject_dirs": ["Sub1"], "subject_ids": [1], "figures": False}},
+        "io": {"module": "preprocess.io.npz_blocks",
+               "params": {"root_dir": raw_dir, "output_dir": out_dir}},
+        "preprocessor": {"module": "preprocess.preprocessor"},
+        "modalities": {
+            "ecog": {"type": "signal", "preprocessing": {"steps": PRE_STEPS}},
+            "audio": {"type": "signal"},
+        },
+    }}}
+
+
+def scipy_chain(x: np.ndarray, raw_sf: float) -> np.ndarray:
+    """The example chain in SciPy/numpy float64, written independently of
+    the port: resample_poly, the Gaussian-bank Hilbert envelope one bank at
+    a time over the full length, sosfiltfilt, the interval z-score."""
+    import scipy.signal as sps
+    from fractions import Fraction
+
+    num = int(x.shape[1] * PRE_TARGET / raw_sf)
+    fr = (Fraction(PRE_TARGET) / Fraction(raw_sf)).limit_denominator(10_000)
+    ds = sps.resample_poly(x.astype(np.float64), fr.numerator, fr.denominator,
+                           axis=1)[:, :num]
+    n = ds.shape[1]
+    # Centers 0.018 Hz * 2**(k/7) in [70, 150) Hz; sigma sqrt(2)*0.39*sqrt(fc).
+    centers = 0.018 * 2.0 ** (np.arange(120) / 7.0)
+    centers = centers[(centers >= 70.0) & (centers < 150.0)]
+    freqs = np.fft.fftfreq(n, d=1.0 / PRE_TARGET)
+    mult = np.zeros(n)
+    mult[0] = 1.0
+    mult[1:(n + 1) // 2] = 2.0
+    if n % 2 == 0:
+        mult[n // 2] = 1.0
+    spec = np.fft.fft(ds, axis=1)
+    env = np.zeros_like(ds)
+    for fc in centers:
+        k = np.exp(-0.5 * ((freqs - fc) / (np.sqrt(2.0) * 0.39 * np.sqrt(fc))) ** 2)
+        k[0] = 0.0
+        env += np.abs(np.fft.ifft(spec * (k * mult), axis=1))
+    env /= len(centers)
+    sos = sps.butter(4, [0.3, 100.0], btype="bandpass", fs=PRE_TARGET, output="sos")
+    sig = np.concatenate([env, sps.sosfiltfilt(sos, ds, axis=1)], axis=0)
+    ref = sig[:, : int(25 * PRE_TARGET)]
+    return (sig - ref.mean(axis=1, keepdims=True)) / ref.std(axis=1, keepdims=True)
+
+
+def preprocess_times(x: np.ndarray, raw_sf: float, card: str) -> None:
+    """Times of the chain on the card: preprocess_signal on a device tensor
+    (median of 5 wall times after a warm-up) and the device time inside it
+    (torch.profiler), so the card's busy share; each step's time between
+    CUDA events (median of 5, host stalls included) and its device time;
+    the top device operations of one call."""
+    from argparse import Namespace
+
+    import torch
+
+    from decode_tonal_langauge_tpu_torch import registry
+    from decode_tonal_langauge_tpu_torch._timing import device_events
+    from decode_tonal_langauge_tpu_torch.preprocess import preprocessor
+
+    def device_ms(fn):
+        rows = device_events(fn, runs=5)
+        check(rows, "torch.profiler saw no device time in the preprocess chain")
+        return sum(r[0] for r in rows), rows
+
+    xd = torch.from_numpy(x).cuda()
+
+    def call():
+        return preprocessor.preprocess_signal(
+            xd, PRE_STEPS, Namespace(signal_freq=raw_sf), device="cuda")[0]
+
+    call()  # warm-up: cuFFT plans, cuDNN algorithm choice
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall_ms = float(np.median(walls)) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    busy_ms, rows = device_ms(call)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+
+    params = Namespace(signal_freq=raw_sf)
+    preprocessor._apply_step_params(PRE_STEPS, params)
+    steps, y = {}, xd
+    for step in PRE_STEPS:
+        module = registry.resolve(step["module"])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        runs = []
+        for _ in range(5):
+            p = Namespace(**vars(params))
+            start.record()
+            out = module.run(y, p)
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end))
+        dev_ms, _ = device_ms(lambda: module.run(y, Namespace(**vars(params))))
+        steps[step["module"].split(".")[-1]] = (float(np.median(runs)), dev_ms)
+        y, params = out, p
+
+    print(f"preprocess {raw_sf} Hz: preprocess_signal {PRE_SECONDS / (wall_ms / 1e3):.1f} "
+          f"recording-s/s ({wall_ms:.2f} ms, median of 5), {busy_ms:.3f} ms of it "
+          f"device work ({100 * busy_ms / wall_ms:.1f}% busy), peak "
+          f"{peak_mib:.0f} MiB allocated [{card}]")
+    print("  steps, ms between CUDA events (median of 5) / device ms (torch.profiler): "
+          + ", ".join(f"{k} {ev:.3f} / {dv:.3f}" for k, (ev, dv) in steps.items())
+          + f" [{card}]")
+    for ms, n, name in rows[:8]:
+        print(f"    {ms:8.4f} ms  x{n:<5g} {name[:100]}")
+
+
+def preprocess_phase(card: str) -> None:
+    """The preprocess stage through ``preprocess.main.run`` at both rates:
+    two blocks each, files and shapes checked, the card's output held
+    against the port on the CPU (rtol/atol 1e-3) and against the SciPy
+    chain (correlation >= 0.99 outside the first and last 5 s, the gate of
+    ``bench.py``), then timed."""
+    from argparse import Namespace
+
+    from decode_tonal_langauge_tpu_torch.ops import cuda_iir
+    from decode_tonal_langauge_tpu_torch.preprocess import main as preprocess_main
+    from decode_tonal_langauge_tpu_torch.preprocess import preprocessor
+
+    rng = np.random.default_rng(0)
+    for raw_sf in PRE_RATES:
+        with tempfile.TemporaryDirectory() as root:
+            raw_dir = os.path.join(root, "raw")
+            blocks = write_blocks(raw_dir, raw_sf, PRE_CHANNELS, PRE_SECONDS, rng)
+            cuda_iir.LAUNCHES = 0
+            t0 = time.perf_counter()
+            setup_dir = preprocess_main.run(
+                stage_config(raw_dir, os.path.join(root, "out")))
+            stage_s = time.perf_counter() - t0
+            k1 = cuda_iir.LAUNCHES
+            t_raw = int(PRE_SECONDS * raw_sf)
+            n_out = int(t_raw * PRE_TARGET / raw_sf)
+            sub = os.path.join(setup_dir, "subject_1")
+            for block in (1, 2):
+                ecog = np.load(os.path.join(sub, f"B{block}_ecog.npz"))
+                audio = np.load(os.path.join(sub, f"B{block}_audio.npz"))
+                check(float(ecog["sf"]) == PRE_TARGET and ecog["data"].shape
+                      == (2 * PRE_CHANNELS, n_out), f"B{block}_ecog: sf {ecog['sf']}, "
+                      f"shape {ecog['data'].shape} at {raw_sf} Hz")
+                check(np.isfinite(ecog["data"]).all(), f"B{block}_ecog: non-finite")
+                check(float(audio["sf"]) == AUDIO_SF and audio["data"].shape
+                      == (1, int(PRE_SECONDS * AUDIO_SF)), f"B{block}_audio: wrong")
+
+            x = np.load(os.path.join(blocks[0], "raw.npz"))["ecog"]
+            got = np.load(os.path.join(sub, "B1_ecog.npz"))["data"]
+            cpu, _ = preprocessor.preprocess_signal(
+                x, PRE_STEPS, Namespace(signal_freq=raw_sf), device="cpu")
+            cpu = cpu.numpy()
+            err = np.abs(got - cpu).max()
+            check(np.allclose(got, cpu, rtol=1e-3, atol=1e-3),
+                  f"preprocess {raw_sf} Hz: card vs cpu max abs diff {err}")
+            edge = 5 * PRE_TARGET
+            ref = scipy_chain(x, raw_sf)
+            corr = float(np.corrcoef(got[:, edge:-edge].ravel(),
+                                     ref[:, edge:-edge].ravel())[0, 1])
+            check(np.isfinite(corr) and corr >= 0.99,
+                  f"preprocess {raw_sf} Hz: correlation with SciPy {corr}")
+            print(f"preprocess stage {raw_sf} Hz, 2 blocks of {PRE_CHANNELS} x "
+                  f"{t_raw}: {stage_s:.2f} s wall (files included), out "
+                  f"{got.shape}, card vs cpu max abs diff {err:.3g}, corr with "
+                  f"SciPy {corr:.5f}, K1 launches {k1} [{card}]")
+            preprocess_times(x, raw_sf, card)
 
 
 def write_artifacts(root: str, rng) -> dict:
@@ -380,8 +597,13 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    from decode_tonal_langauge_tpu_torch.ops import cuda_iir
+
     kernels = [k1_phase(card)]
+    preprocess_phase(card)
+    cuda_iir.LAUNCHES = 0
     serving_phase(card)
+    print(f"K1 launches during the serving phase: {cuda_iir.LAUNCHES}")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

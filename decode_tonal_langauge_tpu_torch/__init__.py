@@ -4,7 +4,16 @@ A second package beside ``decode_tonal_langauge_tpu`` (the JAX
 reference). It imports ``torch``, numpy and scipy only, never JAX or the
 JAX package, and keeps its own copies of the host helpers it needs.
 
-This slice covers the serving path:
+It covers the preprocess stage (``preprocess/``):
+
+    raw block (C, T) at the recording rate
+      -> polyphase / FFT downsample (``ops/resample.py``)
+      -> Gaussian-bank Hilbert envelope, Butterworth and FIR bands
+         (``ops/hilbert.py``, ``ops/iir.py``, ``ops/fir.py``)
+      -> CAR / interval / channel / rolling z-score (``ops/rereference.py``)
+      -> per-block npz files
+
+and the serving path:
 
     epochs (B, C, T)
       -> tone (CNN-RNN) + syllable (CNN) classifier probabilities

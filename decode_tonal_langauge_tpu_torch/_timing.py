@@ -3,8 +3,9 @@
 - :func:`time_ms`: milliseconds of one call made back to back with
   others, between two CUDA events (host work included where it does not
   hide behind the card's).
-- :func:`kernel_ms`: device milliseconds of named kernels per call, from
-  ``torch.profiler`` (no host time in them).
+- :func:`device_events`: the device work of one call by name, from
+  ``torch.profiler`` (no host time in it);
+- :func:`kernel_ms`: device milliseconds of named kernels per call.
 """
 
 from __future__ import annotations
@@ -30,13 +31,11 @@ def time_ms(fn: Callable, warmup: int = 2, runs: int = 20) -> float:
     return start.elapsed_time(end) / runs
 
 
-def kernel_ms(
-    fn: Callable, kernels: Sequence[Tuple[str, ...]], runs: int = 20
-) -> Optional[List[float]]:
-    """Mean device milliseconds per call of ``fn`` spent in each kernel of
-    ``kernels`` over ``runs`` calls, after two warm-up calls. A kernel is
-    named by substrings that all occur in the profiler's name for it.
-    None if the profiler saw no device time for one of them."""
+def device_events(fn: Callable, runs: int = 20) -> List[Tuple[float, float, str]]:
+    """Device work per call of ``fn`` over ``runs`` calls, after two
+    warm-up calls, from ``torch.profiler`` tracing the card only (kernels,
+    copies, memsets): (milliseconds, launches, name) per call for each
+    name the profiler reports, largest first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -47,10 +46,24 @@ def kernel_ms(
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    found: List[Optional[float]] = [None] * len(kernels)
+    rows = []
     for e in prof.key_averages():
         total_us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+        if total_us:
+            rows.append((total_us / runs / 1e3, e.count / runs, e.key))
+    return sorted(rows, reverse=True)
+
+
+def kernel_ms(
+    fn: Callable, kernels: Sequence[Tuple[str, ...]], runs: int = 20
+) -> Optional[List[float]]:
+    """Mean device milliseconds per call of ``fn`` spent in each kernel of
+    ``kernels`` (see :func:`device_events`). A kernel is named by
+    substrings that all occur in the profiler's name for it. None if the
+    profiler saw no device time for one of them."""
+    found: List[Optional[float]] = [None] * len(kernels)
+    for ms, _, name in device_events(fn, runs):
         for i, parts in enumerate(kernels):
-            if total_us and all(p in e.key for p in parts):
-                found[i] = (found[i] or 0.0) + total_us / runs / 1e3
+            if all(p in name for p in parts):
+                found[i] = (found[i] or 0.0) + ms
     return None if None in found else found

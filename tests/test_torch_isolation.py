@@ -35,17 +35,24 @@ import numpy as np
 import torch
 torch.cuda.is_available = lambda: False  # a machine without a card
 
+from argparse import Namespace
+
 from decode_tonal_langauge_tpu_torch.models.factory import get_classifier_by_name
+from decode_tonal_langauge_tpu_torch.preprocess import main as preprocess_main
+from decode_tonal_langauge_tpu_torch.preprocess.preprocessor import preprocess_signal
 from decode_tonal_langauge_tpu_torch.runtime.device import resolve_device
 from decode_tonal_langauge_tpu_torch.serving import TonalDecoder
 from decode_tonal_langauge_tpu_torch.utils.audio import audio_to_mel, mels_to_audio
 
 model = get_classifier_by_name("logistic", 2, 2, 4)
+steps = [{"module": "channel_zscore"}]
 calls = [
     lambda: resolve_device(None),
     lambda: TonalDecoder(model, model, {"0": [0.0]}),
     lambda: mels_to_audio(np.zeros((1, 8), np.float32), n_mels=8),
     lambda: audio_to_mel(np.zeros(4096, np.float32), 8000),
+    lambda: preprocess_main.run({"preprocess": {"params": {}}}),
+    lambda: preprocess_signal(np.zeros((2, 8), np.float32), steps, Namespace(signal_freq=8.0)),
 ]
 for call in calls:
     try:
@@ -55,6 +62,9 @@ for call in calls:
     else:
         raise AssertionError("an entry point ran without a card")
 assert str(TonalDecoder(model, model, {"0": [0.0]}, device="cpu").device) == "cpu"
+out, _ = preprocess_signal(np.ones((2, 8), np.float32), steps, Namespace(signal_freq=8.0),
+                           device="cpu")
+assert out.device.type == "cpu"
 print("isolated", len(names))
 """
 
@@ -66,7 +76,7 @@ def test_port_imports_without_jax_and_defaults_to_cuda():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().startswith("isolated")
-    assert int(out.stdout.split()[-1]) >= 20  # every module was imported
+    assert int(out.stdout.split()[-1]) >= 40  # every module was imported
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
