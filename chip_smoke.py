@@ -33,7 +33,24 @@ present, or when the port's sources are not beside it.
    ``preprocess_signal``, each step's device time, the top device
    operations of one call (``torch.profiler``) and how many times K1
    launched (none: the stage is not on K1's path).
-4. Serving phase at the paper's widths (CNN-RNN tone and CNN syllable
+4. Training phase: the classifier-training stage through
+   ``training.train_classifier.run`` on the card at the paper's widths: a
+   seeded synthetic subject (320 trials of 6 channels x 200 samples, 4
+   tones, 8 syllables, class-dependent contours over noise), the CNN for
+   syllables and the CNN-RNN (lstm_dim 800) for tones, 2 seeds, batch 32,
+   3 epochs, lr 5e-4, weight decay 0.01, standardised, checkpoints saved.
+   Checks results.csv (joint, syllable and tone rows, finite), the class
+   counts, the 4 checkpoints and 3-row histories; serves the checkpoints
+   back through ``serving.load_decoder`` on the card (ids equal to the
+   trainer's test predictions); holds two NAdam steps of the full-width
+   CNN and CNN-RNN on the card against the CPU and float64 (the losses,
+   the first gradient and the weights, at the tolerances stated at
+   STEP_LOSS_TOL); prints
+   the stage wall, peak device memory, each model's median train-step
+   time and trials/s, and the device work of one step (busy share,
+   operations, the top ones from ``torch.profiler``); K1 must launch 0
+   times.
+5. Serving phase at the paper's widths (CNN-RNN tone and CNN syllable
    models on 6 channels each, SynthesisLite on 20, 200-sample epochs,
    4 tones, 8 syllables, mel_dim 2560, Griffin-Lim at sr 24414 with n_fft
    2048, hop 512, 32 iterations) with seeded random weights: the serving
@@ -41,11 +58,12 @@ present, or when the port's sources are not beside it.
    window 200, hop 40: 596 windows), then the same epoch decode on the
    card and on the CPU, which must agree. Prints trials/s, windows/s and
    waves/s beside the card's name and power limit.
-5. Prints the ``kernels`` JSON line, then the final ``ok`` JSON line.
+6. Prints the ``kernels`` JSON line, then the final ``ok`` JSON line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -411,6 +429,349 @@ def preprocess_phase(card: str) -> None:
             preprocess_times(x, raw_sf, card)
 
 
+TRAIN_TRIALS, TRAIN_CHANNELS, TRAIN_LENGTH, N_TONES, N_SYLLS = 320, 6, 200, 4, 8
+TRAIN_BATCH, TRAIN_LR = 32, 5e-4
+# Card vs CPU: from the same seeded weights on the same batch, two NAdam
+# steps in float32 on the card, in float32 on the CPU and in float64 on the
+# card. The losses of the two float32 runs agree within STEP_LOSS_TOL. The
+# first gradient and the weights after two steps are held by how far each
+# float32 run lies from the float64 one (relative L2 distance, per tensor):
+# the card's lies no farther than the CPU's, or within F64_FLOOR. Card and
+# CPU are not compared element by element: max-pooling routes each
+# gradient to the largest element of a window, and near-ties follow the
+# rounding of the convolution below, so one window routed otherwise in a
+# late pool puts every earlier layer's gradient ~1.5e-3 from float64;
+# NAdam's first step is ~lr times the sign of each gradient element, so an
+# element whose gradient float32 cannot resolve moves a few lr the other
+# way, and the biases (zero at the start) end up a few percent from
+# float64. Such tensors are held to the CPU's own distance. The floor,
+# 1e-4, is a fifth of TF32's unit roundoff (4.9e-4): a control run,
+# the same two steps on the card with TF32 allowed in cuDNN and cuBLAS,
+# must fail this rule, or the rule could not tell float32 from TF32.
+STEP_LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
+F64_FLOOR = 1e-4
+
+
+def write_subject(root: str, rng) -> dict:
+    """A seeded synthetic subject at the paper's widths: ``ecog`` (320, 6,
+    200) with a tone contour on channels 0-2 and a syllable contour on
+    3-5 over unit noise, 4 tones and 8 syllables; every channel is
+    discriminative for both targets."""
+    tone = rng.integers(0, N_TONES, TRAIN_TRIALS)
+    syll = rng.integers(0, N_SYLLS, TRAIN_TRIALS)
+    t = np.linspace(0.0, 1.0, TRAIN_LENGTH, dtype=np.float32)
+    tone_shapes = np.stack([np.sin(np.pi * (k + 1) * t) for k in range(N_TONES)])
+    syll_shapes = np.stack([np.cos(np.pi * (k + 1) * t + k) for k in range(N_SYLLS)])
+    ecog = rng.standard_normal((TRAIN_TRIALS, TRAIN_CHANNELS, TRAIN_LENGTH)).astype(np.float32)
+    ecog[:, :3] += tone_shapes[tone][:, None, :]
+    ecog[:, 3:] += syll_shapes[syll][:, None, :]
+    dirs = {k: os.path.join(root, k) for k in ("samples", "channels", "logs")}
+    for d in dirs.values():
+        os.makedirs(d)
+    np.savez(os.path.join(dirs["samples"], "subject_1.npz"), ecog=ecog, ecog_sf=400.0,
+             tone=tone, syllable=syll)
+    chans = list(range(TRAIN_CHANNELS))
+    selections = {"active_channels": chans, "tone_discriminative": chans,
+                  "syllable_discriminative": chans}
+    with open(os.path.join(dirs["channels"], "subject_1.json"), "w") as f:
+        json.dump(selections, f)
+    return {"dirs": dirs, "ecog": ecog, "selections": selections}
+
+
+def training_config(dirs: dict) -> dict:
+    """The paper's pairing: CNN for syllables, CNN-RNN (lstm_dim 800) for
+    tones through ``model.per_target``; 2 seeds, batch 32, 3 epochs."""
+    return {
+        "model": {
+            "model": "models.deep_classifiers.CNNClassifier", "model_name": "CNN",
+            "model_kwargs": {},
+            "per_target": {"tone": {"model": "models.deep_classifiers.CNNRNNClassifier",
+                                    "model_kwargs": {"lstm_dim": 800}}},
+        },
+        "training": {"module": "train_classifier", "params": {
+            "io": {"log_dir": dirs["logs"], "sample_dir": dirs["samples"],
+                   "channel_selection_dir": dirs["channels"]},
+            "experiment": {"targets": ["syllable", "tone"], "features": "ecog",
+                           "separate_models": True, "seed": 42, "repeat": 2,
+                           "verbose": 0},
+            "training": {"train_ratio": 0.7, "vali_ratio": 0.1, "test_ratio": 0.2,
+                         "batch_size": TRAIN_BATCH, "epochs": 3, "lr": TRAIN_LR,
+                         "patience": 60, "weight_decay": 0.01, "standardize": True,
+                         "save_checkpoints": True},
+        }},
+        "evaluation": {"metrics": ["accuracy", "f1_score"],
+                       "metric_aggregates": ["mean", "std"]},
+    }
+
+
+def read_csv(path: str) -> list:
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def check_stage_outputs(log_dir: str, seeds) -> None:
+    """results.csv rows, class counts, checkpoints and per-seed histories,
+    every number finite."""
+    rows = read_csv(os.path.join(log_dir, "results.csv"))
+    check([r["target"] for r in rows] == ["syllable, tone", "syllable", "tone"],
+          f"results.csv targets {[r['target'] for r in rows]}")
+    for r in rows:
+        for key in ("accuracy_mean", "accuracy_std", "f1_score_mean", "f1_score_std"):
+            check(np.isfinite(float(r[key])), f"results.csv {r['target']} {key} = {r[key]}")
+    with open(os.path.join(log_dir, "n_classes_subject_1.json")) as f:
+        check(json.load(f) == {"syllable": N_SYLLS, "tone": N_TONES},
+              "n_classes_subject_1.json")
+    ckpts = sorted(os.listdir(os.path.join(log_dir, "model_checkpoints")))
+    want = sorted([f"syllable_CNN_subject_1_seed_{s}" for s in seeds]
+                  + [f"tone_CNNRNNClassifier_subject_1_seed_{s}" for s in seeds])
+    check(ckpts == want, f"checkpoints {ckpts}")
+    for target in ("syllable", "tone"):
+        for seed in seeds:
+            hist = read_csv(os.path.join(log_dir, f"{target}_csv", "subject_1",
+                                         f"seed_{seed}", "metrics.csv"))
+            check(len(hist) == 3 and all(np.isfinite(float(v)) for r in hist
+                                         for v in r.values()),
+                  f"{target} seed {seed} metrics.csv: {hist}")
+
+
+def round_trip(log_dir: str, subject: dict, fits: dict, seeds, device: str) -> None:
+    """The stage's checkpoints through the serving path on the card: on
+    each seed's test trials, decoded in batches of the trainer's size, the
+    ids equal the trainer's test predictions."""
+    from decode_tonal_langauge_tpu_torch import serving
+    from decode_tonal_langauge_tpu_torch.data.splits import split_indices
+
+    dataset = {"n_tones": N_TONES, "n_syllables": N_SYLLS,
+               "tone_dynamic_mapping": {str(k): [0.0] for k in range(N_TONES)}}
+    ckpt = os.path.join(log_dir, "model_checkpoints", "{}_subject_1_seed_{}")
+    for seed in seeds:
+        _, _, te = split_indices(TRAIN_TRIALS, [0.7, 0.1, 0.2], seed=int(seed))
+        decoder = serving.load_decoder(
+            subject["selections"], dataset, TRAIN_LENGTH,
+            "CNNRNN", ckpt.format("tone_CNNRNNClassifier", seed),
+            "CNN", ckpt.format("syllable_CNN", seed),
+            tone_model_kwargs={"lstm_dim": 800}, device=device)
+        ecog = subject["ecog"][te]
+        outs = [decoder.decode(ecog[lo:lo + TRAIN_BATCH], subject["selections"])
+                for lo in range(0, len(te), TRAIN_BATCH)]
+        for key in ("tone", "syllable"):
+            got = np.concatenate([o[key] for o in outs])
+            want = fits[key][int(seed)]
+            check(np.array_equal(got, want),
+                  f"round trip seed {seed}: served {key} ids differ from the trainer's "
+                  f"on {int((got != want).sum())} of {len(te)} test trials")
+    print(f"round trip: checkpoints -> serving.load_decoder on the card reproduce the "
+          f"trainer's tone and syllable test predictions for seeds {list(seeds)}")
+
+
+def two_steps(model, batch, precision) -> dict:
+    """Two NAdam steps of the trainer's loss (``train_step`` in the model's
+    own dtype, its forward and backward inside ``precision()``): the first
+    gradient, the losses and the final weights."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.training.optim import NAdam
+    from decode_tonal_langauge_tpu_torch.training.trainer import _batch_loss
+
+    names, weights = zip(*model.named_parameters())
+    opt = NAdam(weights, TRAIN_LR, weight_decay=0.01)
+    model.train()
+    first, losses = None, []
+    for _ in range(2):
+        with precision():
+            loss = _batch_loss(model(batch[0]), batch[1], batch[2])
+            grads = torch.autograd.grad(loss, weights)
+        first = first or {k: g.cpu().double() for k, g in zip(names, grads)}
+        opt.step(grads)
+        losses.append(loss.item())
+    end = {k: v.detach().cpu().double() for k, v in zip(names, weights)}
+    return {"grads": first, "losses": losses, "end": end}
+
+
+@contextlib.contextmanager
+def tf32_allowed():
+    """cuDNN convolutions and cuBLAS matmuls in TF32, for the control run."""
+    import torch
+
+    matmul = torch.backends.cuda.matmul
+    before = matmul.allow_tf32
+    matmul.allow_tf32 = True
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                        allow_tf32=True):
+            yield
+    finally:
+        matmul.allow_tf32 = before
+
+
+def distance(run: dict, exact: dict, key: str) -> dict:
+    """Relative L2 distance of each tensor of ``run[key]`` from float64's."""
+    return {k: (v - exact[key][k]).norm().item() / max(exact[key][k].norm().item(), 1e-30)
+            for k, v in run[key].items()}
+
+
+def parity_faults(run: dict, cpu_run: dict, exact: dict) -> list:
+    """Where ``run`` breaks the card-vs-CPU rule (see STEP_LOSS_TOL): the
+    losses, then each tensor of the first gradient and of the weights
+    after two steps; empty when it holds."""
+    faults = []
+    if not np.allclose(run["losses"], cpu_run["losses"], **STEP_LOSS_TOL):
+        faults.append(f"losses {run['losses']} vs cpu {cpu_run['losses']}")
+    for key, what in (("grads", "first gradient"), ("end", "weights after 2 steps")):
+        mine, cpus = distance(run, exact, key), distance(cpu_run, exact, key)
+        faults += [f"{what} {k}: {mine[k]:.3g} from float64, cpu {cpus[k]:.3g}"
+                   for k in mine if mine[k] > max(cpus[k], F64_FLOOR)]
+    return faults
+
+
+def step_parity(card: str, device: str) -> dict:
+    """Card vs CPU: the full-width CNN and CNN-RNN (dropout 0) from the
+    same seeded weights on one batch of 32, two NAdam steps on the card,
+    on the CPU and in float64 on the card, and the TF32 control on the
+    card. Returns card trainers and the batch for the timings."""
+    import copy
+
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.models.base import init_params
+    from decode_tonal_langauge_tpu_torch.models.factory import get_classifier_by_name
+    from decode_tonal_langauge_tpu_torch.runtime.device import exact_f32
+    from decode_tonal_langauge_tpu_torch.training.trainer import ClassifierTrainer
+
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((TRAIN_BATCH, TRAIN_CHANNELS, TRAIN_LENGTH)).astype(np.float32)
+    out = {}
+    for name, n_classes, kwargs in (("CNN", N_SYLLS, {"dropout_rate": 0.0}),
+                                    ("CNNRNN", N_TONES, {"lstm_dim": 800, "dropout": 0.0})):
+        y = torch.from_numpy(rng.integers(0, n_classes, TRAIN_BATCH))
+        model = init_params(get_classifier_by_name(
+            name, n_classes, TRAIN_CHANNELS, TRAIN_LENGTH, kwargs), seed=3)
+        runs = {}
+        for key, dev, dtype, precision in (
+                ("card", device, torch.float32, exact_f32),
+                ("cpu", "cpu", torch.float32, exact_f32),
+                ("f64", device, torch.float64, exact_f32),
+                ("tf32", device, torch.float32, tf32_allowed)):
+            if key == "tf32" and device != "cuda":
+                continue  # TF32 exists on the card only
+            batch = (torch.from_numpy(x).to(dev, dtype), y.to(dev),
+                     torch.ones(TRAIN_BATCH, device=dev, dtype=dtype))
+            runs[key] = two_steps(copy.deepcopy(model).to(dev, dtype), batch, precision)
+        cpu_run, exact = runs["cpu"], runs["f64"]
+        print(f"{name} card vs cpu at batch {TRAIN_BATCH}, 2 NAdam steps: losses "
+              f"{runs['card']['losses']} vs {cpu_run['losses']} (float64 {exact['losses']}"
+              + (f", TF32 control {runs['tf32']['losses']}" if "tf32" in runs else "")
+              + f") [{card}]")
+        for key, what in (("grads", "first gradient"), ("end", "weights after 2 steps")):
+            dist = {run: distance(runs[run], exact, key) for run in runs if run != "f64"}
+            print(f"  {what}, relative L2 distance from float64 ({' / '.join(dist)}): "
+                  + ", ".join(f"{k} " + "/".join(f"{d[k]:.2g}" for d in dist.values())
+                              for k in dist["card"]))
+            held = [k for k, v in dist["cpu"].items() if v > F64_FLOOR]
+            print(f"    held to the cpu's distance (cpu above {F64_FLOOR:g}): "
+                  f"{', '.join(held) or 'none'}")
+        faults = parity_faults(runs["card"], cpu_run, exact)
+        check(not faults, f"{name}: the card breaks the step rule: {'; '.join(faults)}")
+        if "tf32" in runs:
+            control = parity_faults(runs["tf32"], cpu_run, exact)
+            print(f"  TF32 control breaks the rule on {len(control)} of "
+                  f"{1 + 2 * len(exact['grads'])} counts, as it must: {'; '.join(control[:4])}")
+            check(bool(control), f"{name}: the TF32 control passes the step rule, "
+                  "which therefore cannot tell float32 from TF32")
+        trainer = ClassifierTrainer(copy.deepcopy(model), n_classes, learning_rate=TRAIN_LR,
+                                    weight_decay=0.01, batch_size=TRAIN_BATCH, seed=3,
+                                    device=device)
+        trainer.init()
+        out[name] = (trainer, (torch.from_numpy(x).to(device), y.to(device),
+                               torch.ones(TRAIN_BATCH, device=device)))
+    return out
+
+
+def train_step_times(card: str, trainers: dict) -> None:
+    """Median train-step wall time (host clock around synchronize, after a
+    warm-up) and trials/s per model at batch 32; the device work of one
+    step from torch.profiler: busy share, launches, top operations."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch._timing import device_events
+
+    for name, (trainer, batch) in trainers.items():
+        step = lambda: trainer.train_step(*batch)  # noqa: E731
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall_ms = float(np.median(walls)) * 1e3
+        rows = device_events(step, runs=3)
+        check(rows, f"torch.profiler saw no device time in a {name} train step")
+        busy_ms = sum(r[0] for r in rows)
+        launches = sum(r[1] for r in rows)
+        print(f"{name} train step, batch {TRAIN_BATCH}: {wall_ms:.2f} ms (median of 10), "
+              f"{TRAIN_BATCH / (wall_ms / 1e3):.1f} trials/s; device work {busy_ms:.3f} ms "
+              f"({100 * busy_ms / wall_ms:.1f}% busy), {launches:.0f} device operations "
+              f"a step [{card}]")
+        for ms, n, op in rows[:8]:
+            print(f"    {ms:8.4f} ms  x{n:<6g} {op[:100]}")
+
+
+def training_phase(card: str, device: str = "cuda") -> None:
+    """The classifier-training stage through ``train_classifier.run`` on
+    the card at the paper's widths, its outputs checked, the checkpoints
+    served back, card vs CPU step parity, and the step timings (card
+    only: ``device="cpu"`` rehearses the rest on a machine without one)."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.ops import cuda_iir
+    from decode_tonal_langauge_tpu_torch.training import classifier_pipeline, train_classifier
+    from decode_tonal_langauge_tpu_torch.utils.seeding import seed_stream
+
+    fits = {}
+    fit_all = classifier_pipeline._fit_eval_all_seeds
+
+    def recording(*args, target_str=None, **kwargs):  # each target's test predictions
+        results = fit_all(*args, target_str=target_str, **kwargs)
+        fits[target_str] = {r.seed: r.test_preds for r in results}
+        return results
+
+    with tempfile.TemporaryDirectory() as root:
+        subject = write_subject(root, np.random.default_rng(0))
+        seeds = [int(s) for s in seed_stream(42, 2)]
+        cuda_iir.LAUNCHES = 0
+        on_card = device == "cuda"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        classifier_pipeline._fit_eval_all_seeds = recording
+        try:
+            t0 = time.perf_counter()
+            log_dir = train_classifier.run(training_config(subject["dirs"]),
+                                           device=None if on_card else device)
+            stage_s = time.perf_counter() - t0
+        finally:
+            classifier_pipeline._fit_eval_all_seeds = fit_all
+        check(sorted(fits) == ["syllable", "tone"], f"fits recorded for {sorted(fits)}")
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20 if on_card else float("nan")
+        check_stage_outputs(log_dir, seeds)
+        rows = read_csv(os.path.join(log_dir, "results.csv"))
+        print(f"training stage, 2 targets x 2 seeds x 3 epochs, {TRAIN_TRIALS} trials of "
+              f"{TRAIN_CHANNELS} x {TRAIN_LENGTH}: {stage_s:.2f} s wall (files included), "
+              f"peak {peak_mib:.0f} MiB allocated; test accuracy "
+              + ", ".join(f"{r['target']} {float(r['accuracy_mean']):.3f}" for r in rows)
+              + f" [{card}]")
+        round_trip(log_dir, subject, fits, seeds, device)
+    trainers = step_parity(card, device)
+    if on_card:
+        train_step_times(card, trainers)
+    print(f"K1 launches during the training phase: {cuda_iir.LAUNCHES}")
+    check(cuda_iir.LAUNCHES == 0, "K1 launched during the training phase")
+
+
 def write_artifacts(root: str, rng) -> dict:
     """Seeded random-weight checkpoints, channel/config JSON, an epoch npz
     and a continuous recording at the bench shapes."""
@@ -601,6 +962,7 @@ def main() -> None:
 
     kernels = [k1_phase(card)]
     preprocess_phase(card)
+    training_phase(card)
     cuda_iir.LAUNCHES = 0
     serving_phase(card)
     print(f"K1 launches during the serving phase: {cuda_iir.LAUNCHES}")

@@ -13,6 +13,13 @@ It covers the preprocess stage (``preprocess/``):
       -> CAR / interval / channel / rolling z-score (``ops/rereference.py``)
       -> per-block npz files
 
+classifier training (``training/``):
+
+    sample npz + channel selection
+      -> per-target CNN / CNN-RNN / logistic fits (NAdam, early stopping,
+         the LSTM's hand-written backward in ``ops/lstm.py``), one per seed
+      -> results.csv, per-seed histories, torch checkpoints
+
 and the serving path:
 
     epochs (B, C, T)

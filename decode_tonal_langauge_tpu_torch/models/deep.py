@@ -5,7 +5,9 @@ models are NHWC (time = H, electrodes = W, features = C); these convolve
 in PyTorch's NCHW, and every flatten and concat follows the JAX order:
 the CNN flattens (B, t, C, 256), and the CNN-RNN reshapes to
 (B, t', w * 256), w-major, before its second LSTM. Pooling comes before
-the leaky ReLU, and the class heads compute in f32.
+the leaky ReLU, and the class heads compute in their weights' dtype (f32).
+Dropout draws its mask from the generator the trainer sets
+(``ops/dropout.py``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import Dropout
 from ..ops.lstm import TimeBatchedLSTM
 from ..ops.stencil import StencilConvPoolLeaky
 from .base import conv_output_length
@@ -68,7 +71,7 @@ class CNNClassifier(nn.Module):
             + [nn.Conv2d(widths[i - 1], widths[i], (3, 1))
                for i in range(1, len(widths))]
         )
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.fc1 = nn.Linear(latent * input_channels * widths[-1], 1024)
         self.fc2 = nn.Linear(1024, n_classes)
 
@@ -81,7 +84,7 @@ class CNNClassifier(nn.Module):
             y = F.leaky_relu(y, self.negative_slope)
         y = self.dropout(y)
         y = F.leaky_relu(self.fc1(_flatten_nhwc(y)), self.negative_slope)
-        return torch.sigmoid(self.fc2(y.float()))
+        return torch.sigmoid(self.fc2(y.to(self.fc2.weight.dtype)))
 
 
 class CNNRNNClassifier(nn.Module):
@@ -113,7 +116,7 @@ class CNNRNNClassifier(nn.Module):
                                           negative_slope=negative_slope)
         self.conv3a = nn.Conv2d(1024, 512, (7, 1))
         self.conv3b = nn.Conv2d(512, 256, (7, 1))
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         width = lstm_dim // input_length + input_channels
         self.lstm2 = TimeBatchedLSTM(width * 256, 512)
         self.head = nn.Linear(512, n_classes)
@@ -136,4 +139,4 @@ class CNNRNNClassifier(nn.Module):
         # (B, 256, t'', w) -> (B, t'', w * 256), w-major as in JAX
         y = y.permute(0, 2, 3, 1).reshape(b, y.shape[2], -1)
         y = self.lstm2(y)[:, -1, :]
-        return torch.sigmoid(self.head(y.float()))
+        return torch.sigmoid(self.head(y.to(self.head.weight.dtype)))

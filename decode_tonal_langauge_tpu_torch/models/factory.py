@@ -5,7 +5,8 @@ Counterpart of ``decode_tonal_langauge_tpu/models/factory.py`` and of
 ``training/train_synthesizer.build_synthesis_model``. A model is named by
 the serving CLI's short name (``CNN``, ``CNNRNN``, ``ShallowNN``,
 ``logistic``) or by a dotted path whose last part is the class name (the
-JAX package's and the reference's paths both resolve).
+JAX package's and the reference's paths both resolve; the registry maps
+the latter onto the port's modules).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Any, Dict, Optional
 
 from torch import nn
 
+from ..registry import canonical_module_path
 from .deep import CNNClassifier, CNNRNNClassifier
 from .simple import LogisticRegressionClassifier, ShallowNNClassifier
 from .synthesis import SynthesisLite, SynthesisModelCNN
@@ -36,7 +38,8 @@ SYNTHESIS_MODELS = {"SynthesisFull": SynthesisModelCNN,
 
 def resolve_model_class(name: str) -> type:
     """Short name or dotted path -> the port's classifier class."""
-    cls_name = CLASSIFIER_SHORT_NAMES.get(name, name).rsplit(".", 1)[-1]
+    path = canonical_module_path(CLASSIFIER_SHORT_NAMES.get(name, name))
+    cls_name = path.rsplit(".", 1)[-1]
     if cls_name not in CLASSIFIERS:
         raise ValueError(
             f"Unknown classifier '{name}'; the port has "

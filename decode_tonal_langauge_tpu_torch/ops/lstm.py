@@ -1,17 +1,99 @@
 """Time-batched LSTM: one matmul for every input projection, a loop for
-the recurrence.
+the recurrence, and a hand-written backward.
 
-Counterpart of ``decode_tonal_langauge_tpu/ops/lstm.py`` (forward only;
-the hand-written backward comes with training). Gate math is Flax's
-``OptimizedLSTMCell``: gate order i, f, g, o, sigmoid i/f/o, tanh g, and a
-single bias on the hidden projection. ``torch.nn.LSTM`` carries two
-biases and another gate order, hence this module.
+Counterpart of ``decode_tonal_langauge_tpu/ops/lstm.py``. Gate math is
+Flax's ``OptimizedLSTMCell``: gate order i, f, g, o, sigmoid i/f/o, tanh
+g, and a single bias on the hidden projection. ``torch.nn.LSTM`` carries
+two biases and another gate order, hence this module.
+
+The backward (:class:`LSTMSequence`, a ``torch.autograd.Function``) is the
+JAX package's ``custom_vjp``: the forward keeps ``h``, ``c`` and the four
+gates of every step; a reverse loop carries only ``(dh, dc)`` and stacks
+the pre-activation gate deltas ``da``; the weight and input gradients are
+then time-batched matmuls over the stacked ``(T*B, 4H)`` deltas, so no
+weight-gradient accumulator runs through the loop. Without a gradient to
+take (serving), the forward keeps nothing but ``h``.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+
+def _lstm_scan(xg: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+               wh: torch.Tensor, keep: bool):
+    """Forward recurrence over ``xg`` (B, T, 4H), the input projections
+    plus bias. Returns the hidden sequence (B, T, H) and, with ``keep``,
+    the time-major (T, B, H) stacks of c, i, f, g, o."""
+    hs, saved = [], []
+    for t in range(xg.shape[1]):
+        gates = xg[:, t] + h @ wh
+        i, f, g, o = gates.chunk(4, dim=-1)
+        i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+        c = f * c + i * g
+        h = o * torch.tanh(c)
+        hs.append(h)
+        if keep:
+            saved.append((c, i, f, g, o))
+    out = torch.stack(hs, dim=1)
+    if not keep:
+        return out, None
+    return out, [torch.stack(s) for s in zip(*saved)]
+
+
+class LSTMSequence(torch.autograd.Function):
+    """``lstm_sequence`` with the JAX package's backward
+    (``decode_tonal_langauge_tpu/ops/lstm.py:79-141``)."""
+
+    @staticmethod
+    def forward(x, h0, c0, wi, wh, b):
+        xg = torch.einsum("bti,ih->bth", x, wi) + b  # all timesteps at once
+        out, (cs, i, f, g, o) = _lstm_scan(xg, h0, c0, wh, keep=True)
+        return out, cs, i, f, g, o
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, h0, c0, wi, wh, _ = inputs
+        out, cs, i, f, g, o = output
+        ctx.mark_non_differentiable(cs, i, f, g, o)
+        ctx.save_for_backward(x, h0, c0, wi, wh, out, cs, i, f, g, o)
+
+    @staticmethod
+    def backward(ctx, d_out, *_):
+        x, h0, c0, wi, wh, out, cs, i, f, g, o = ctx.saved_tensors
+        n_t, bsz, hid = cs.shape
+        hs = out.transpose(0, 1)  # (T, B, H)
+        d_hs = d_out.transpose(0, 1)
+        wh_t = wh.t()
+        das = d_hs.new_empty((n_t, bsz, 4 * hid))
+        dh_next = torch.zeros_like(h0)
+        dc_next = torch.zeros_like(c0)
+        for t in range(n_t - 1, -1, -1):
+            dh = d_hs[t] + dh_next
+            tc = torch.tanh(cs[t])
+            dc = dh * o[t] * (1.0 - tc * tc) + dc_next
+            cp = cs[t - 1] if t else c0
+            da = das[t]  # pre-activation gate deltas, gate order i, f, g, o
+            da[:, :hid] = dc * g[t] * i[t] * (1.0 - i[t])
+            da[:, hid:2 * hid] = dc * cp * f[t] * (1.0 - f[t])
+            da[:, 2 * hid:3 * hid] = dc * i[t] * (1.0 - g[t] * g[t])
+            da[:, 3 * hid:] = dh * tc * o[t] * (1.0 - o[t])
+            dh_next = da @ wh_t
+            dc_next = dc * f[t]
+
+        da_flat = das.reshape(n_t * bsz, 4 * hid)
+        dx = dwi = dwh = db = None
+        if ctx.needs_input_grad[4]:
+            h_prev = torch.cat([h0[None], hs[:-1]], dim=0)
+            dwh = h_prev.reshape(n_t * bsz, hid).t() @ da_flat
+        if ctx.needs_input_grad[3]:
+            dwi = x.transpose(0, 1).reshape(n_t * bsz, -1).t() @ da_flat
+        if ctx.needs_input_grad[5]:
+            db = da_flat.sum(dim=0)
+        if ctx.needs_input_grad[0]:
+            dx = (das @ wi.t()).transpose(0, 1)  # (T,B,4H)@(4H,I) -> (B,T,I)
+        return dx, dh_next, dc_next, dwi, dwh, db
 
 
 def lstm_sequence(
@@ -24,16 +106,11 @@ def lstm_sequence(
 ) -> torch.Tensor:
     """Run an LSTM over ``x`` (B, T, I); returns the hidden sequence
     (B, T, H). ``wi`` (I, 4H), ``wh`` (H, 4H), ``b`` (4H,)."""
-    xg = torch.einsum("bti,ih->bth", x, wi) + b  # all timesteps at once
-    h, c = h0, c0
-    hs = []
-    for t in range(x.shape[1]):
-        gates = xg[:, t] + h @ wh
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h = torch.sigmoid(o) * torch.tanh(c)
-        hs.append(h)
-    return torch.stack(hs, dim=1)
+    inputs = (x, h0, c0, wi, wh, b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return LSTMSequence.apply(*inputs)[0]
+    xg = torch.einsum("bti,ih->bth", x, wi) + b
+    return _lstm_scan(xg, h0, c0, wh, keep=False)[0]
 
 
 class TimeBatchedLSTM(nn.Module):

@@ -33,6 +33,12 @@ _ALIASES: Dict[str, str] = {
     # and the reference's path "preprocess.signal.<op>"
     **{f"preprocess.{s}": f"{_PKG}.preprocess.signal.{s}" for s in _STEPS},
     **{f"preprocess.signal.{s}": f"{_PKG}.preprocess.signal.{s}" for s in _STEPS},
+    "train_classifier": f"{_PKG}.training.train_classifier",
+    # model classes, as the `model:` config section names them
+    "models.simple_classifiers.LogisticRegressionClassifier": f"{_PKG}.models.simple.LogisticRegressionClassifier",
+    "models.simple_classifiers.ShallowNNClassifier": f"{_PKG}.models.simple.ShallowNNClassifier",
+    "models.deep_classifiers.CNNClassifier": f"{_PKG}.models.deep.CNNClassifier",
+    "models.deep_classifiers.CNNRNNClassifier": f"{_PKG}.models.deep.CNNRNNClassifier",
 }
 
 # Short names for new-style configs.

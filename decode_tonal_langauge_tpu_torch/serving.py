@@ -43,6 +43,7 @@ from torch import nn
 from .data.utils import select_non_discriminative_channels, tone_dynamics_table
 from .models.factory import build_synthesis_model, get_classifier_by_name
 from .ops.framing import extract_epochs
+from .runtime.checkpoint import load_checkpoint, save_checkpoint  # noqa: F401
 from .runtime.device import DeviceLike, exact_f32, resolve_device
 
 _DISCRIMINATIVE = ["tone_discriminative", "syllable_discriminative"]
@@ -120,7 +121,8 @@ class TonalDecoder:
         if not isinstance(ecog_samples, torch.Tensor):  # a copy: numpy may be read-only
             ecog_samples = torch.tensor(np.asarray(ecog_samples, dtype=np.float32))
         x = ecog_samples.to(device=self.device, dtype=torch.float32)
-        idx = lambda ch: torch.as_tensor(sorted(ch), device=self.device)  # noqa: E731
+        idx = lambda ch: torch.as_tensor(sorted(ch), dtype=torch.long,  # noqa: E731
+                                         device=self.device)
         non = select_non_discriminative_channels(channel_selections, _DISCRIMINATIVE)
         tones, sylls, tone_probs, syll_probs, mel = self._decode(
             x[:, idx(channel_selections["tone_discriminative"])],
@@ -206,28 +208,6 @@ class TonalDecoder:
 
 
 # ----------------------------------------------------------------------
-def save_checkpoint(path: str, module: nn.Module, scaler=None) -> str:
-    """Write ``{"params": state_dict[, "scaler": {"mu", "sd"}]}``."""
-    tree: Dict[str, Any] = {
-        "params": {k: v.detach().cpu() for k, v in module.state_dict().items()}
-    }
-    if scaler is not None:
-        tree["scaler"] = {
-            "mu": torch.as_tensor(np.asarray(scaler[0]), dtype=torch.float32),
-            "sd": torch.as_tensor(np.asarray(scaler[1]), dtype=torch.float32),
-        }
-    torch.save(tree, path)
-    return path
-
-
-def _load_checkpoint(path: str):
-    tree = torch.load(path, map_location="cpu", weights_only=True)
-    scaler = tree.get("scaler")
-    if scaler is not None:
-        scaler = (scaler["mu"], scaler["sd"])
-    return tree["params"], scaler
-
-
 def _mel_dim_from_params(params) -> Optional[int]:
     """Synthesizer output dim from the head bias: ``output_layer``
     (SynthesisModelCNN) or ``fc2`` (SynthesisLite)."""
@@ -264,7 +244,7 @@ def load_decoder(
         model = get_classifier_by_name(
             name, n_classes, len(channel_selections[key]), n_timepoints, kwargs
         )
-        params, scaler = _load_checkpoint(path)
+        params, scaler = load_checkpoint(path)
         model.load_state_dict(params)
         return model, scaler
 
@@ -279,7 +259,7 @@ def load_decoder(
     synthesis_model = None
     if synthesis_model_name:
         non = select_non_discriminative_channels(channel_selections, _DISCRIMINATIVE)
-        params, _ = _load_checkpoint(synthesis_model_path)
+        params, _ = load_checkpoint(synthesis_model_path)
         # The checkpoint's head is authoritative for the output dim.
         mel_dim = _mel_dim_from_params(params) or mel_dim
         if mel_dim is None:

@@ -1,14 +1,14 @@
-"""Preprocessing figures (matplotlib, headless).
+"""Preprocessing and confusion figures (matplotlib, headless).
 
-Counterpart of ``plot_preprocessing_step`` in
-``decode_tonal_langauge_tpu/utils/visualise.py``. matplotlib is imported
-when a figure is drawn, so the port imports without it.
+Counterparts of ``plot_preprocessing_step`` and ``plot_confusion_matrix``
+in ``decode_tonal_langauge_tpu/utils/visualise.py``. matplotlib is
+imported when a figure is drawn, so the port imports without it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -69,3 +69,43 @@ def plot_preprocessing_step(
     fig.savefig(path, dpi=150)
     plt.close(fig)
     return path
+
+
+def plot_confusion_matrix(
+    confusion_matrix: np.ndarray,
+    add_numbers: bool = True,
+    label_names: Optional[Sequence[str]] = None,
+    figure_path: Optional[str] = None,
+    title: str = "Confusion Matrix",
+) -> None:
+    """Heatmap of a confusion matrix, counts in the cells; saved to
+    ``figure_path`` (or shown when it is None)."""
+    import matplotlib
+
+    if figure_path:
+        matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    cm = np.asarray(confusion_matrix, dtype=float)
+    fig, ax = plt.subplots(figsize=(8, 7))
+    im = ax.imshow(cm, cmap="Blues")
+    fig.colorbar(im, ax=ax)
+    n = cm.shape[0]
+    if label_names is not None and len(label_names) == n:
+        ax.set_xticks(range(n), labels=list(label_names), rotation=45, ha="right")
+        ax.set_yticks(range(n), labels=list(label_names))
+    if add_numbers:
+        thresh = cm.max() / 2.0 if cm.size else 0
+        for i in range(n):
+            for j in range(cm.shape[1]):
+                ax.text(j, i, f"{cm[i, j]:.0f}", ha="center", va="center",
+                        color="white" if cm[i, j] > thresh else "black")
+    ax.set_xlabel("Predicted")
+    ax.set_ylabel("True")
+    ax.set_title(title)
+    fig.tight_layout()
+    if figure_path:
+        fig.savefig(figure_path, dpi=150, bbox_inches="tight")
+    else:
+        plt.show()
+    plt.close(fig)

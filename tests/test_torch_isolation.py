@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package, and its entry points default to CUDA instead of falling back to
-the CPU."""
+package (nor sklearn, pandas, matplotlib or tensorboardX, which the card's
+machine lacks), and its entry points default to CUDA instead of falling
+back to the CPU."""
 
 import os
 import subprocess
@@ -11,7 +12,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ISOLATED_IMPORT = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "decode_tonal_langauge_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "decode_tonal_langauge_tpu",
+           "sklearn", "pandas", "matplotlib", "tensorboardX")
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -42,6 +44,8 @@ from decode_tonal_langauge_tpu_torch.preprocess import main as preprocess_main
 from decode_tonal_langauge_tpu_torch.preprocess.preprocessor import preprocess_signal
 from decode_tonal_langauge_tpu_torch.runtime.device import resolve_device
 from decode_tonal_langauge_tpu_torch.serving import TonalDecoder
+from decode_tonal_langauge_tpu_torch.training import train_classifier
+from decode_tonal_langauge_tpu_torch.training.trainer import ClassifierTrainer
 from decode_tonal_langauge_tpu_torch.utils.audio import audio_to_mel, mels_to_audio
 
 model = get_classifier_by_name("logistic", 2, 2, 4)
@@ -53,6 +57,9 @@ calls = [
     lambda: audio_to_mel(np.zeros(4096, np.float32), 8000),
     lambda: preprocess_main.run({"preprocess": {"params": {}}}),
     lambda: preprocess_signal(np.zeros((2, 8), np.float32), steps, Namespace(signal_freq=8.0)),
+    lambda: train_classifier.run({"training": {"params": {}}}),
+    lambda: ClassifierTrainer(model, 2).fit(*([np.zeros((4, 2, 4), np.float32),
+                                              np.zeros(4, np.int64)] * 2)),
 ]
 for call in calls:
     try:
