@@ -43,14 +43,28 @@ present, or when the port's sources are not beside it.
    counts, the 4 checkpoints and 3-row histories; serves the checkpoints
    back through ``serving.load_decoder`` on the card (ids equal to the
    trainer's test predictions); holds two NAdam steps of the full-width
-   CNN and CNN-RNN on the card against the CPU and float64 (the losses,
-   the first gradient and the weights, at the tolerances stated at
-   STEP_LOSS_TOL); prints
-   the stage wall, peak device memory, each model's median train-step
-   time and trials/s, and the device work of one step (busy share,
-   operations, the top ones from ``torch.profiler``); K1 must launch 0
-   times.
-5. Serving phase at the paper's widths (CNN-RNN tone and CNN syllable
+   CNN and CNN-RNN on the card against the CPU, each against a float64
+   twin that follows its branch (the rule at STEP_LOSS_TOL, with a TF32
+   control that must break it); prints the stage wall, peak device
+   memory, each model's median train-step time and trials/s, and the
+   device work of one step (busy share, operations, the top ones from
+   ``torch.profiler``); K1 must launch 0 times.
+5. Synthesizer phase: a synthetic subject (``data/synthetic``) through the
+   preprocess stage and ``data/extract_samples.run`` (npz keys, shapes,
+   labels equal to the events); then ``train_synthesizer.run`` at the
+   paper's SynthesisFull widths (101.8 M parameters: 96 trials of 40
+   non-discriminative + 6 tone + 6 syllable channels x 200 samples,
+   100-step label dynamics, mel 128 x 20 from 0.4 s of audio; seeded
+   CNN-RNN tone and CNN syllable checkpoints with scalers; batch 8, 2
+   seeds x 3 epochs, ``--checkpoint_dir``, ``--train_state_dir``, WAVs):
+   files, rows and MCDs below the zero predictor's; ``--evaluate_only``
+   repeats each seed's row exactly; 2 epochs then ``--resume`` to 3 equal
+   the straight fit bit for bit; the serving CLI on a checkpoint reports
+   ``mel_mcd`` and ``mel_pearson_r``, and its test mels, decoded in
+   batches of 8, lie within 1e-3 of ``evaluate``'s; the step timed at
+   batch 8 and 32 (trials/s, device ms, busy share, top ops); two NAdam
+   steps card vs CPU vs float64 with the TF32 control; K1 0 launches.
+6. Serving phase at the paper's widths (CNN-RNN tone and CNN syllable
    models on 6 channels each, SynthesisLite on 20, 200-sample epochs,
    4 tones, 8 syllables, mel_dim 2560, Griffin-Lim at sr 24414 with n_fft
    2048, hop 512, 32 iterations) with seeded random weights: the serving
@@ -58,7 +72,8 @@ present, or when the port's sources are not beside it.
    window 200, hop 40: 596 windows), then the same epoch decode on the
    card and on the CPU, which must agree. Prints trials/s, windows/s and
    waves/s beside the card's name and power limit.
-6. Prints the ``kernels`` JSON line, then the final ``ok`` JSON line.
+7. Prints each phase's wall time, the ``kernels`` JSON line, then the
+   final ``ok`` JSON line.
 """
 
 from __future__ import annotations
@@ -432,24 +447,32 @@ def preprocess_phase(card: str) -> None:
 TRAIN_TRIALS, TRAIN_CHANNELS, TRAIN_LENGTH, N_TONES, N_SYLLS = 320, 6, 200, 4, 8
 TRAIN_BATCH, TRAIN_LR = 32, 5e-4
 # Card vs CPU: from the same seeded weights on the same batch, two NAdam
-# steps in float32 on the card, in float32 on the CPU and in float64 on the
-# card. The losses of the two float32 runs agree within STEP_LOSS_TOL. The
-# first gradient and the weights after two steps are held by how far each
-# float32 run lies from the float64 one (relative L2 distance, per tensor):
-# the card's lies no farther than the CPU's, or within F64_FLOOR. Card and
-# CPU are not compared element by element: max-pooling routes each
-# gradient to the largest element of a window, and near-ties follow the
-# rounding of the convolution below, so one window routed otherwise in a
-# late pool puts every earlier layer's gradient ~1.5e-3 from float64;
-# NAdam's first step is ~lr times the sign of each gradient element, so an
-# element whose gradient float32 cannot resolve moves a few lr the other
-# way, and the biases (zero at the start) end up a few percent from
-# float64. Such tensors are held to the CPU's own distance. The floor,
-# 1e-4, is a fifth of TF32's unit roundoff (4.9e-4): a control run,
-# the same two steps on the card with TF32 allowed in cuDNN and cuBLAS,
-# must fail this rule, or the rule could not tell float32 from TF32.
+# steps in float32 on the card and on the CPU. The losses of the two agree
+# within STEP_LOSS_TOL. The first gradient and the weights after two steps
+# are held by how far each float32 run lies from a float64 twin on the card
+# that follows the same branch (relative L2 distance, per tensor): the
+# card's lies no farther than the CPU's, or within F64_FLOOR. The twin
+# replays the float32 run's max-pool choices and leaky-ReLU sides
+# (``BranchTape``): a free float64 run may land a near-tie on the other
+# side, and then every gradient below it jumps (one max-pool window
+# routed otherwise put a CNN's early gradients ~1.5e-3 from float64; one
+# leaky ReLU input on the other side of zero put SynthesisFull's ~2e-4),
+# and NAdam's first step, ~lr times the sign of each gradient element,
+# carries such jumps into the weights. So the distances measure rounding
+# alone. One effect is left: an element whose gradient, at either step, lies
+# within rounding of zero takes NAdam's ~lr step in either direction (one
+# conv3a.bias element put the CNN-RNN's card weights 8e-4 from its twin),
+# and one within ~eps of zero takes a step proportional to its gradient,
+# rounding noise and all. As in the tier-1 tests, the weights' distances
+# leave out the elements whose gradient, at either step, lies more than
+# UNRESOLVED (1%) of itself from the twin's; those are held to MAX_STEPS
+# (3.5) lr, two steps of at most ~1.5 lr each. The floor, 1e-4, is a fifth of TF32's unit roundoff (4.9e-4): a
+# control run, the same two steps on the card with TF32 allowed in cuDNN
+# and cuBLAS, held to its own twin, must fail this rule, or the rule could
+# not tell float32 from TF32.
 STEP_LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
 F64_FLOOR = 1e-4
+UNRESOLVED, MAX_STEPS = 1e-2, 3.5
 
 
 def write_subject(root: str, rng) -> dict:
@@ -566,28 +589,106 @@ def round_trip(log_dir: str, subject: dict, fits: dict, seeds, device: str) -> N
           f"trainer's tone and syllable test predictions for seeds {list(seeds)}")
 
 
-def two_steps(model, batch, precision) -> dict:
-    """Two NAdam steps of the trainer's loss (``train_step`` in the model's
-    own dtype, its forward and backward inside ``precision()``): the first
-    gradient, the losses and the final weights."""
+def classifier_loss(model, batch):
+    """The classifier trainer's loss: softmax cross-entropy, weighted."""
+    from decode_tonal_langauge_tpu_torch.training.trainer import _batch_loss
+
+    return _batch_loss(model(batch[0]), batch[1], batch[2])
+
+
+class BranchTape:
+    """The branch one forward takes through the models' kinks: the element
+    each max-pool window picked (``F.max_pool2d``), the larger of the
+    stencil's pool phases (``torch.maximum``) and the side of zero of each
+    leaky ReLU's input (``F.leaky_relu``), recorded in call order from one
+    run and replayed in another. A float64 run that replays a float32
+    run's tape computes the exact gradient of the branch that run took, so
+    the two differ by rounding alone: where a float32 forward lands a
+    near-tie or a near-zero input on the other side than float64 does, the
+    gradient below it jumps by far more than rounding (a max-pool routes
+    it elsewhere, a leaky ReLU scales it by its slope)."""
+
+    def __init__(self) -> None:
+        self.decisions: list = []
+        self.replayed = 0  # decisions replayed so far, across forwards
+
+    @contextlib.contextmanager
+    def patched(self, replay: bool):
+        import torch
+        import torch.nn.functional as F
+
+        saved = F.leaky_relu, F.max_pool2d, torch.maximum
+
+        def decision(record, like):
+            if replay:
+                self.replayed += 1
+                return self.decisions[self.replayed - 1].to(like.device)
+            self.decisions.append(record())
+            return self.decisions[-1]
+
+        def leaky_relu(x, negative_slope=0.01, inplace=False):
+            mask = decision(lambda: (x > 0).detach(), x)
+            return torch.where(mask, x, x * negative_slope)
+
+        def max_pool2d(x, kernel_size, stride=None, *args, **kwargs):
+            idx = decision(lambda: saved[1](x.detach(), kernel_size, stride,
+                                            return_indices=True)[1], x)
+            return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+        def maximum(a, b):
+            return torch.where(decision(lambda: (a >= b).detach(), a), a, b)
+
+        F.leaky_relu, F.max_pool2d, torch.maximum = leaky_relu, max_pool2d, maximum
+        try:
+            yield
+        finally:
+            F.leaky_relu, F.max_pool2d, torch.maximum = saved
+
+
+def classifier_loss(model, batch):
+    """The classifier trainer's loss: softmax cross-entropy, weighted."""
+    from decode_tonal_langauge_tpu_torch.training.trainer import _batch_loss
+
+    return _batch_loss(model(batch[0]), batch[1], batch[2])
+
+
+def two_steps(model, batch, precision, loss, tape=None, replay=False, **opt) -> dict:
+    """Two NAdam steps (``opt`` its arguments) of ``loss(model, batch)``
+    in the model's own dtype, the forward and backward inside
+    ``precision()``, recording the branch into ``tape`` (or, with
+    ``replay``, following the branch recorded there): the first gradient
+    (float64), both steps' gradients (float32), the losses and the final
+    weights."""
     import torch
 
     from decode_tonal_langauge_tpu_torch.training.optim import NAdam
-    from decode_tonal_langauge_tpu_torch.training.trainer import _batch_loss
 
     names, weights = zip(*model.named_parameters())
-    opt = NAdam(weights, TRAIN_LR, weight_decay=0.01)
+    optimizer = NAdam(weights, **opt)
     model.train()
-    first, losses = None, []
+    first, losses, steps = None, [], []
     for _ in range(2):
-        with precision():
-            loss = _batch_loss(model(batch[0]), batch[1], batch[2])
-            grads = torch.autograd.grad(loss, weights)
+        branch = tape.patched(replay) if tape is not None else contextlib.nullcontext()
+        with precision(), branch:
+            value = loss(model, batch)
+            grads = torch.autograd.grad(value, weights)
         first = first or {k: g.cpu().double() for k, g in zip(names, grads)}
-        opt.step(grads)
-        losses.append(loss.item())
+        steps.append({k: g.float().cpu() for k, g in zip(names, grads)})
+        optimizer.step(grads)
+        losses.append(value.item())
     end = {k: v.detach().cpu().double() for k, v in zip(names, weights)}
-    return {"grads": first, "losses": losses, "end": end}
+    return {"grads": first, "steps": steps, "losses": losses, "end": end}
+
+
+def unresolved(run: dict, twin: dict) -> dict:
+    """Per tensor, the elements whose gradient, at either step, lies more
+    than UNRESOLVED of its float64 twin's value away from it: those
+    within rounding of zero."""
+    return {k: (((run["steps"][0][k] - twin["steps"][0][k]).abs()
+                 > UNRESOLVED * twin["steps"][0][k].abs())
+                | ((run["steps"][1][k] - twin["steps"][1][k]).abs()
+                   > UNRESOLVED * twin["steps"][1][k].abs()))
+            for k in run["steps"][0]}
 
 
 @contextlib.contextmanager
@@ -606,38 +707,113 @@ def tf32_allowed():
         matmul.allow_tf32 = before
 
 
-def distance(run: dict, exact: dict, key: str) -> dict:
-    """Relative L2 distance of each tensor of ``run[key]`` from float64's."""
-    return {k: (v - exact[key][k]).norm().item() / max(exact[key][k].norm().item(), 1e-30)
-            for k, v in run[key].items()}
+def distance(run: dict, exact: dict, key: str, skip=None) -> dict:
+    """Relative L2 distance of each tensor of ``run[key]`` from a float64
+    run's, leaving out the elements ``skip`` marks."""
+    out = {}
+    for k, v in run[key].items():
+        ref = exact[key][k]
+        if skip is not None:
+            v, ref = v[~skip[k]], ref[~skip[k]]
+        out[k] = (v - ref).norm().item() / max(ref.norm().item(), 1e-30)
+    return out
 
 
-def parity_faults(run: dict, cpu_run: dict, exact: dict) -> list:
-    """Where ``run`` breaks the card-vs-CPU rule (see STEP_LOSS_TOL): the
-    losses, then each tensor of the first gradient and of the weights
-    after two steps; empty when it holds."""
+def parity_faults(run: str, runs: dict, lr: float) -> list:
+    """Where ``runs[run]`` breaks the card-vs-CPU rule (see STEP_LOSS_TOL):
+    the losses against the CPU's, then each tensor of the first gradient
+    and of the weights after two steps, held by its distance from its own
+    float64 twin (``runs[run + "64"]``) against the CPU's from its twin;
+    the weights of elements whose gradient float32 cannot resolve held to
+    MAX_STEPS * lr instead; empty when it holds."""
     faults = []
-    if not np.allclose(run["losses"], cpu_run["losses"], **STEP_LOSS_TOL):
-        faults.append(f"losses {run['losses']} vs cpu {cpu_run['losses']}")
+    if not np.allclose(runs[run]["losses"], runs["cpu"]["losses"], **STEP_LOSS_TOL):
+        faults.append(f"losses {runs[run]['losses']} vs cpu {runs['cpu']['losses']}")
+    flips = {r: unresolved(runs[r], runs[r + "64"]) for r in (run, "cpu")}
     for key, what in (("grads", "first gradient"), ("end", "weights after 2 steps")):
-        mine, cpus = distance(run, exact, key), distance(cpu_run, exact, key)
+        skip = {r: flips[r] if key == "end" else None for r in (run, "cpu")}
+        mine = distance(runs[run], runs[run + "64"], key, skip[run])
+        cpus = distance(runs["cpu"], runs["cpu64"], key, skip["cpu"])
         faults += [f"{what} {k}: {mine[k]:.3g} from float64, cpu {cpus[k]:.3g}"
                    for k in mine if mine[k] > max(cpus[k], F64_FLOOR)]
+    for k, flipped in flips[run].items():
+        off = (runs[run]["end"][k] - runs[run + "64"]["end"][k]).abs()[flipped]
+        if off.numel() and off.max().item() > MAX_STEPS * lr:
+            faults.append(f"weights after 2 steps {k}: an element of unresolved gradient "
+                          f"{off.max().item():.3g} from float64, over {MAX_STEPS} lr")
     return faults
+
+
+def held_step_parity(card: str, name: str, model, batch, device: str, loss, **opt) -> None:
+    """Two NAdam steps of ``model`` from the same weights on ``batch``
+    (CPU tensors) in float32 on the card and on the CPU, and the TF32
+    control on the card, each with a float64 twin on the card that
+    follows its branch (``BranchTape``), plus a float64 run on its own
+    branch for comparison; fails unless the card keeps the rule of
+    STEP_LOSS_TOL and the control breaks it."""
+    import copy
+
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.runtime.device import exact_f32
+
+    def run(dev, dtype, precision, **tape):
+        on_dev = tuple(t.to(dev, dtype) if t.is_floating_point() else t.to(dev) for t in batch)
+        return two_steps(copy.deepcopy(model).to(dev, dtype), on_dev, precision, loss,
+                         **tape, **opt)
+
+    runs = {}
+    for key, dev, precision in (("card", device, exact_f32), ("cpu", "cpu", exact_f32),
+                                ("tf32", device, tf32_allowed)):
+        if key == "tf32" and device != "cuda":
+            continue  # TF32 exists on the card only
+        tape = BranchTape()
+        runs[key] = run(dev, torch.float32, precision, tape=tape)
+        runs[key + "64"] = run(device, torch.float64, exact_f32, tape=tape, replay=True)
+    free = run(device, torch.float64, exact_f32)  # float64 on its own branch
+    f32_runs = [k for k in ("card", "cpu", "tf32") if k in runs]
+    print(f"{name} card vs cpu at batch {batch[0].shape[0]}, 2 NAdam steps: losses "
+          f"{runs['card']['losses']} vs {runs['cpu']['losses']} (float64 {free['losses']}"
+          + (f", TF32 control {runs['tf32']['losses']}" if "tf32" in runs else "")
+          + f") [{card}]")
+    for key, what in (("grads", "first gradient"), ("end", "weights after 2 steps")):
+        dist = {r: distance(runs[r], runs[r + "64"], key,
+                            unresolved(runs[r], runs[r + "64"]) if key == "end" else None)
+                for r in f32_runs}
+        print(f"  {what}, relative L2 distance from the float64 twin on its branch "
+              f"({' / '.join(dist)}): "
+              + ", ".join(f"{k} " + "/".join(f"{d[k]:.2g}" for d in dist.values())
+                          for k in dist["card"]))
+        loose = {r: distance(runs[r], free, key) for r in ("card", "cpu")}
+        worst = {r: max(d.items(), key=lambda kv: kv[1]) for r, d in loose.items()}
+        print(f"    from float64 on its own branch, largest: "
+              + ", ".join(f"{r} {k} {v:.2g}" for r, (k, v) in worst.items()))
+    exempt = {r: sum(int(m.sum()) for m in unresolved(runs[r], runs[r + "64"]).values())
+              for r in f32_runs}
+    print(f"  elements whose gradient lies over {UNRESOLVED:g} of itself from the twin's, "
+          f"left out of the weights' distances (held to {MAX_STEPS} lr): "
+          + ", ".join(f"{r} {n}" for r, n in exempt.items()))
+    faults = parity_faults("card", runs, opt["learning_rate"])
+    check(not faults, f"{name}: the card breaks the step rule: {'; '.join(faults)}")
+    if "tf32" in runs:
+        control = parity_faults("tf32", runs, opt["learning_rate"])
+        print(f"  TF32 control breaks the rule on {len(control)} of "
+              f"{1 + 2 * len(runs['card']['grads'])} counts, as it must: "
+              f"{'; '.join(control[:4])}")
+        check(bool(control), f"{name}: the TF32 control passes the step rule, "
+              "which therefore cannot tell float32 from TF32")
 
 
 def step_parity(card: str, device: str) -> dict:
     """Card vs CPU: the full-width CNN and CNN-RNN (dropout 0) from the
-    same seeded weights on one batch of 32, two NAdam steps on the card,
-    on the CPU and in float64 on the card, and the TF32 control on the
-    card. Returns card trainers and the batch for the timings."""
+    same seeded weights on one batch of 32 (``held_step_parity``).
+    Returns card trainers and the batch for the timings."""
     import copy
 
     import torch
 
     from decode_tonal_langauge_tpu_torch.models.base import init_params
     from decode_tonal_langauge_tpu_torch.models.factory import get_classifier_by_name
-    from decode_tonal_langauge_tpu_torch.runtime.device import exact_f32
     from decode_tonal_langauge_tpu_torch.training.trainer import ClassifierTrainer
 
     rng = np.random.default_rng(1)
@@ -648,38 +824,8 @@ def step_parity(card: str, device: str) -> dict:
         y = torch.from_numpy(rng.integers(0, n_classes, TRAIN_BATCH))
         model = init_params(get_classifier_by_name(
             name, n_classes, TRAIN_CHANNELS, TRAIN_LENGTH, kwargs), seed=3)
-        runs = {}
-        for key, dev, dtype, precision in (
-                ("card", device, torch.float32, exact_f32),
-                ("cpu", "cpu", torch.float32, exact_f32),
-                ("f64", device, torch.float64, exact_f32),
-                ("tf32", device, torch.float32, tf32_allowed)):
-            if key == "tf32" and device != "cuda":
-                continue  # TF32 exists on the card only
-            batch = (torch.from_numpy(x).to(dev, dtype), y.to(dev),
-                     torch.ones(TRAIN_BATCH, device=dev, dtype=dtype))
-            runs[key] = two_steps(copy.deepcopy(model).to(dev, dtype), batch, precision)
-        cpu_run, exact = runs["cpu"], runs["f64"]
-        print(f"{name} card vs cpu at batch {TRAIN_BATCH}, 2 NAdam steps: losses "
-              f"{runs['card']['losses']} vs {cpu_run['losses']} (float64 {exact['losses']}"
-              + (f", TF32 control {runs['tf32']['losses']}" if "tf32" in runs else "")
-              + f") [{card}]")
-        for key, what in (("grads", "first gradient"), ("end", "weights after 2 steps")):
-            dist = {run: distance(runs[run], exact, key) for run in runs if run != "f64"}
-            print(f"  {what}, relative L2 distance from float64 ({' / '.join(dist)}): "
-                  + ", ".join(f"{k} " + "/".join(f"{d[k]:.2g}" for d in dist.values())
-                              for k in dist["card"]))
-            held = [k for k, v in dist["cpu"].items() if v > F64_FLOOR]
-            print(f"    held to the cpu's distance (cpu above {F64_FLOOR:g}): "
-                  f"{', '.join(held) or 'none'}")
-        faults = parity_faults(runs["card"], cpu_run, exact)
-        check(not faults, f"{name}: the card breaks the step rule: {'; '.join(faults)}")
-        if "tf32" in runs:
-            control = parity_faults(runs["tf32"], cpu_run, exact)
-            print(f"  TF32 control breaks the rule on {len(control)} of "
-                  f"{1 + 2 * len(exact['grads'])} counts, as it must: {'; '.join(control[:4])}")
-            check(bool(control), f"{name}: the TF32 control passes the step rule, "
-                  "which therefore cannot tell float32 from TF32")
+        held_step_parity(card, name, model, (torch.from_numpy(x), y, torch.ones(TRAIN_BATCH)),
+                         device, classifier_loss, learning_rate=TRAIN_LR, weight_decay=0.01)
         trainer = ClassifierTrainer(copy.deepcopy(model), n_classes, learning_rate=TRAIN_LR,
                                     weight_decay=0.01, batch_size=TRAIN_BATCH, seed=3,
                                     device=device)
@@ -690,9 +836,9 @@ def step_parity(card: str, device: str) -> dict:
 
 
 def train_step_times(card: str, trainers: dict) -> None:
-    """Median train-step wall time (host clock around synchronize, after a
-    warm-up) and trials/s per model at batch 32; the device work of one
-    step from torch.profiler: busy share, launches, top operations."""
+    """Median train-step wall time (host clock around synchronize, after
+    3 warm-ups) and trials/s per model at its batch; the device work of
+    one step from torch.profiler: busy share, launches, top operations."""
     import torch
 
     from decode_tonal_langauge_tpu_torch._timing import device_events
@@ -713,8 +859,9 @@ def train_step_times(card: str, trainers: dict) -> None:
         check(rows, f"torch.profiler saw no device time in a {name} train step")
         busy_ms = sum(r[0] for r in rows)
         launches = sum(r[1] for r in rows)
-        print(f"{name} train step, batch {TRAIN_BATCH}: {wall_ms:.2f} ms (median of 10), "
-              f"{TRAIN_BATCH / (wall_ms / 1e3):.1f} trials/s; device work {busy_ms:.3f} ms "
+        n = batch[0].shape[0]
+        print(f"{name} train step, batch {n}: {wall_ms:.2f} ms (median of 10), "
+              f"{n / (wall_ms / 1e3):.1f} trials/s; device work {busy_ms:.3f} ms "
               f"({100 * busy_ms / wall_ms:.1f}% busy), {launches:.0f} device operations "
               f"a step [{card}]")
         for ms, n, op in rows[:8]:
@@ -770,6 +917,343 @@ def training_phase(card: str, device: str = "cuda") -> None:
         train_step_times(card, trainers)
     print(f"K1 launches during the training phase: {cuda_iir.LAUNCHES}")
     check(cuda_iir.LAUNCHES == 0, "K1 launched during the training phase")
+
+
+# The synthesizer phase at the paper's SynthesisFull widths (bench.py:371-463 and
+# 723-795): 96 trials of 40 non-discriminative + 6 tone + 6 syllable channels x 200
+# samples, 100-step label dynamics, mel 128 x 20 (0.4 s of audio at 24,414 Hz, hop
+# 512), batch 8. A rehearsal size runs the same code on a CPU.
+SYN_FULL = dict(trials=96, non=40, cls=6, n_dyn=100, n_mels=128)
+SYN_REHEARSAL = dict(trials=24, non=5, cls=6, n_dyn=10, n_mels=16)
+SYN_LENGTH, SYN_BATCH, SYN_EPOCHS, SYN_SR, SYN_AUDIO = 200, 8, 3, 24414, 9765
+SYN_LR, SYN_DECAY = 5e-4, 0.004
+
+
+def data_path_phase(device: str) -> None:
+    """A synthetic subject (the port's ``data/synthetic``) through the
+    port's preprocess stage and ``extract_samples.run``: the sample npz's
+    keys, shapes and labels."""
+    from decode_tonal_langauge_tpu_torch.data import extract_samples, synthetic
+    from decode_tonal_langauge_tpu_torch.preprocess import main as preprocess_main
+
+    spec = synthetic.SyntheticSpec(n_channels=16, n_blocks=2, trials_per_block=8)
+    on = None if device == "cuda" else device
+    with tempfile.TemporaryDirectory() as root:
+        raw = os.path.join(root, "raw")
+        blocks = synthetic.write_subject(raw, 1, spec)
+        steps = [{"module": "preprocess.downsample", "params": {"downsample_freq": 400}},
+                 {"module": "preprocess.frequency_filter", "params": {"bands": [
+                     {"method": "hilbert", "params": {"freq_ranges": [70, 150],
+                                                      "envelope": True}}]}},
+                 {"module": "preprocess.zscore_rereference",
+                  "params": {"rereference_interval": [0.0, 5.0]}}]
+        cfg = stage_config(raw, os.path.join(root, "processed"))
+        cfg["preprocess"]["params"]["modalities"]["ecog"]["preprocessing"]["steps"] = steps
+        t0 = time.perf_counter()
+        setup_dir = preprocess_main.run(cfg, device=on)
+        collect = {"sample_collection": {"module": "extract_samples", "params": {
+            "io": {"output_dir": os.path.join(root, "samples"), "textgrid_root": raw,
+                   "recording_dir": setup_dir, "figures": False},
+            "subjects": {1: {"start_offset": 0.2, "sample_length": 1.0,
+                             "rest_period": [0.0, 5.0],
+                             "textgrid_dir": "annotations/subject_1",
+                             "tier_list": ["success"]}},
+            "settings": {"syllable_identifiers": list(spec.syllables)},
+        }}}
+        out_dir = extract_samples.run(collect, device=on)
+        wall = time.perf_counter() - t0
+        data = np.load(os.path.join(out_dir, "subject_1.npz"))
+        events = [ev for b in sorted(blocks) for ev in blocks[b].events]
+        n = len(events)
+        check(sorted(data.files) == sorted(["ecog", "ecog_sf", "audio", "audio_sf",
+                                            "syllable", "tone", "ecog_rest"]),
+              f"sample npz keys {data.files}")
+        check(data["ecog"].shape == (n, spec.n_channels, 400)
+              and data["audio"].shape == (n, int(spec.audio_sf))
+              and data["ecog_rest"].shape[1:] == (spec.n_channels, 400)
+              and float(data["ecog_sf"]) == 400.0,
+              f"sample npz shapes ecog {data['ecog'].shape}, audio {data['audio'].shape}, "
+              f"rest {data['ecog_rest'].shape}, sf {data['ecog_sf']}")
+        check(np.array_equal(data["tone"], [ev["tone"] - 1 for ev in events])
+              and np.array_equal(data["syllable"],
+                                 [spec.syllables.index(ev["syllable"]) for ev in events]),
+              "sample npz labels differ from the synthetic events")
+        check(all(np.isfinite(data[k]).all() for k in ("ecog", "audio", "ecog_rest")),
+              "sample npz: non-finite values")
+    print(f"data path: synthetic subject -> preprocess -> extract_samples, {n} trials, "
+          f"ecog {data['ecog'].shape}, audio {data['audio'].shape}, rest "
+          f"{data['ecog_rest'].shape}, labels equal the events ({wall:.2f} s wall)")
+
+
+def write_synthesis_world(root: str, sz: dict) -> dict:
+    """A seeded sample npz (tone channels 0-5, syllable channels 6-11, the
+    rest non-discriminative; tone-pitched audio), its channel and config
+    JSON, and seeded CNN-RNN tone and CNN syllable checkpoints with
+    scalers."""
+    from decode_tonal_langauge_tpu_torch.models.base import init_params
+    from decode_tonal_langauge_tpu_torch.models.factory import get_classifier_by_name
+    from decode_tonal_langauge_tpu_torch.runtime.checkpoint import save_checkpoint
+
+    rng = np.random.default_rng(5)
+    n, cls, n_ch = sz["trials"], sz["cls"], 2 * sz["cls"] + sz["non"]
+    tone, syll = rng.integers(0, N_TONES, n), rng.integers(0, N_SYLLS, n)
+    t = np.linspace(0.0, 1.0, SYN_LENGTH)
+    ecog = rng.standard_normal((n, n_ch, SYN_LENGTH)).astype(np.float32)
+    ecog[:, :cls] += np.sin(np.pi * (tone[:, None] + 1) * t)[:, None, :]
+    ecog[:, cls:2 * cls] += np.cos(np.pi * (syll[:, None] + 1) * t)[:, None, :]
+    ta = np.arange(SYN_AUDIO) / SYN_SR
+    audio = (np.hanning(SYN_AUDIO) * np.sin(2 * np.pi * (150.0 + 40.0 * tone[:, None]) * ta)
+             + 0.05 * rng.standard_normal((n, SYN_AUDIO))).astype(np.float32)
+    paths = {k: os.path.join(root, f) for k, f in (
+        ("sample", "subject_1.npz"), ("channels", "channels.json"), ("config", "config.json"))}
+    np.savez(paths["sample"], ecog=ecog, ecog_sf=400.0, audio=audio, audio_sf=float(SYN_SR),
+             tone=tone, syllable=syll)
+    channels = {"active_channels": list(range(n_ch)),
+                "tone_discriminative": list(range(cls)),
+                "syllable_discriminative": list(range(cls, 2 * cls))}
+    config = {"mel_kwargs": {"n_mels": sz["n_mels"], "n_fft": 2048, "hop_length": 512},
+              "tone_dynamic_mapping": {str(k): list(np.linspace(k / 4, 1 - k / 4, sz["n_dyn"]))
+                                       for k in range(N_TONES)},
+              "n_tones": N_TONES, "n_syllables": N_SYLLS}
+    for key, obj in (("channels", channels), ("config", config)):
+        with open(paths[key], "w") as f:
+            json.dump(obj, f)
+    for key, name, n_classes, seed in (("tone", "CNNRNN", N_TONES, 7), ("syll", "CNN", N_SYLLS, 8)):
+        model = init_params(get_classifier_by_name(name, n_classes, cls, SYN_LENGTH), seed=seed)
+        scaler = (0.1 * rng.standard_normal((1, cls, SYN_LENGTH)).astype(np.float32),
+                  (rng.random((1, cls, SYN_LENGTH)) + 0.5).astype(np.float32))
+        paths[key] = save_checkpoint(os.path.join(root, f"{key}.pt"), model, scaler)
+    return {"paths": paths, "channels": channels, "config": config, "ecog": ecog}
+
+
+def synthesizer_args(paths: dict, out: str, device: str, *extra) -> list:
+    """The synthesizer CLI's arguments: SynthesisFull, CNN syllable and
+    CNN-RNN tone checkpoints, batch 8, 2 seeds x 3 epochs, checkpoints."""
+    args = ["--sample_path", paths["sample"], "--subject_id", "1",
+            "--channel_file", paths["channels"], "--config_file", paths["config"],
+            "--model_name", "synth_smoke", "--synthesis_model_name", "SynthesisFull",
+            "--syllable_model_name", "CNN", "--syllable_model_path", paths["syll"],
+            "--tone_model_name", "CNNRNN", "--tone_model_path", paths["tone"],
+            "--epochs", str(SYN_EPOCHS), "--batch_size", str(SYN_BATCH), "--repeat", "2",
+            "--lr", str(SYN_LR), "--schedule_decay", str(SYN_DECAY), "--verbose", "0",
+            "--audio_sampling_rate", str(SYN_SR), "--result_file",
+            os.path.join(out, "results.csv"), "--checkpoint_dir", os.path.join(out, "ckpts")]
+    if device != "cuda":
+        args += ["--device", device]
+    return args + list(extra)
+
+
+def equal_checkpoints(a: str, b: str) -> bool:
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.runtime.checkpoint import load_checkpoint
+
+    pa, pb = load_checkpoint(a)[0], load_checkpoint(b)[0]
+    return pa.keys() == pb.keys() and all(torch.equal(pa[k], pb[k]) for k in pa)
+
+
+def synthesis_stage(card: str, device: str, root: str, world: dict, sz: dict) -> dict:
+    """``train_synthesizer.run`` at the phase's widths, its files and rows
+    checked, ``--evaluate_only`` and a resume (2 epochs, then 3) held to
+    the fit. Returns the fits ``fit_eval_seed`` made and the summary."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.ops import cuda_iir
+    from decode_tonal_langauge_tpu_torch.training import train_synthesizer as stage
+    from decode_tonal_langauge_tpu_torch.utils.audio import audio_to_mel
+
+    paths = world["paths"]
+    parse = stage.build_parser().parse_args
+    fits, fit_eval = [], stage.fit_eval_seed
+
+    def recording(trainer, *args, **kwargs):  # each seed's trainer, times and results
+        t0 = time.perf_counter()
+        result = fit_eval(trainer, *args, **kwargs)
+        fits.append({"seed": trainer.seed, "s": time.perf_counter() - t0,
+                     "n_params": trainer.n_params(), "result": result})
+        return result
+
+    on_card = device == "cuda"
+    cuda_iir.LAUNCHES = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    out = os.path.join(root, "fit")
+    stage.fit_eval_seed = recording
+    try:
+        t0 = time.perf_counter()
+        summary = stage.run(parse(synthesizer_args(
+            paths, out, device, "--train_state_dir", os.path.join(out, "states"),
+            "--audio_dir", os.path.join(out, "wavs"))))
+        stage_s = time.perf_counter() - t0
+    finally:
+        stage.fit_eval_seed = fit_eval
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20 if on_card else float("nan")
+    k1 = cuda_iir.LAUNCHES
+
+    seeds = [int(s) for s in np.random.default_rng(42).integers(0, 10000, 2)]
+    check(json.loads(summary["seeds"]) == seeds and [f["seed"] for f in fits] == seeds,
+          f"seeds {summary['seeds']}, fits {[f['seed'] for f in fits]}")
+    names = sorted(f"SynthesisFull_seed_{s}" for s in seeds)
+    for sub in ("ckpts", "states"):
+        check(sorted(os.listdir(os.path.join(out, sub))) == names,
+              f"{sub}: {sorted(os.listdir(os.path.join(out, sub)))}")
+    rows = read_csv(os.path.join(out, "results.csv"))
+    check(len(rows) == 1 and rows[0]["mcd_all"] == summary["mcd_all"], f"results.csv {rows}")
+    n_test = sz["trials"] - int(sz["trials"] * 0.9)
+    n_waves = min(10, n_test)
+    check(sorted(os.listdir(os.path.join(out, "wavs"))) == sorted(
+        f"{tag}_{i}.wav" for tag in ("origin", "recon") for i in range(n_waves)),
+        "the stage wrote other WAVs than 2 x n_waves")
+    mels = np.stack([audio_to_mel(a, SYN_SR, mel_kwargs=world["config"]["mel_kwargs"],
+                                  device=device) for a in np.load(paths["sample"])["audio"]])
+    check(mels.shape == (sz["trials"], sz["n_mels"] * 20), f"mels {mels.shape}")
+    from decode_tonal_langauge_tpu_torch.data.splits import split_indices
+    from decode_tonal_langauge_tpu_torch.training.synthesis_trainer import compute_mcd
+
+    for f, mcd in zip(fits, json.loads(summary["mcd_all"])):
+        history, fit_mcd, recon, origin = f["result"]
+        te = split_indices(sz["trials"], [0.9, 0.1], seed=f["seed"])[-1]
+        zero = compute_mcd(mels[te], np.zeros_like(mels[te]))
+        check(len(history) == SYN_EPOCHS and np.isfinite(history).all()
+              and recon.shape == (n_test, mels.shape[1]) and np.isfinite(recon).all()
+              and np.array_equal(origin, mels[te]) and fit_mcd == mcd and mcd < zero,
+              f"seed {f['seed']}: history {history}, mcd {mcd} (zero predictor {zero}), "
+              f"recon {recon.shape}")
+    print(f"synthesizer stage, {summary['synthesis_model']} ({summary['model_size']:,} "
+          f"parameters), {sz['trials']} trials of {sz['non']} + 2 x {sz['cls']} channels x "
+          f"{SYN_LENGTH}, mel {mels.shape[1]}, 2 seeds x {SYN_EPOCHS} epochs at batch "
+          f"{SYN_BATCH}: stage {stage_s:.2f} s wall (files, mels, WAVs included), fits "
+          + " + ".join(f"{f['s']:.2f}" for f in fits) + f" s (train + evaluate), peak "
+          f"{peak_mib:.0f} MiB allocated; test MCD {summary['mcd_all']} (zero predictor "
+          f"~{zero:.0f}), mel r {summary['mel_pearson_r_mean']:.4f} [{card}]")
+    print(f"K1 launches during the synthesizer stage: {k1}")
+    check(k1 == 0, "K1 launched during the synthesizer stage")
+
+    ev = stage.run(parse(synthesizer_args(paths, out, device, "--evaluate_only",
+                                          "--result_file", os.path.join(out, "eval.csv"))))
+    for key in ("mcd_all", "mel_pearson_r_mean", "model_size", "seeds"):
+        check(ev[key] == summary[key], f"--evaluate_only {key}: {ev[key]} vs {summary[key]}")
+    print(f"--evaluate_only reproduces each seed's row exactly: mcd_all {ev['mcd_all']}")
+
+    res = os.path.join(root, "resume")
+    one = synthesizer_args(paths, res, device, "--train_state_dir", os.path.join(res, "states"))
+    one[one.index("--repeat") + 1] = "1"
+    two = list(one)
+    two[two.index("--epochs") + 1] = "2"
+    stage.run(parse(two))
+    resumed = stage.run(parse(one + ["--resume"]))
+    name = f"SynthesisFull_seed_{seeds[0]}"
+    check(json.loads(resumed["mcd_all"])[0] == json.loads(summary["mcd_all"])[0]
+          and equal_checkpoints(os.path.join(res, "ckpts", name), os.path.join(out, "ckpts", name)),
+          f"resume 2 -> 3 epochs: mcd {resumed['mcd_all']} vs the straight fit's "
+          f"{summary['mcd_all']}, or other weights")
+    print(f"resume: 2 epochs, then --resume to 3, equal the straight 3-epoch fit of seed "
+          f"{seeds[0]} (weights bit for bit, MCD {json.loads(resumed['mcd_all'])[0]})")
+    return {"fits": fits, "summary": summary, "out": out, "stage_s": stage_s,
+            "peak_mib": peak_mib}
+
+
+def synthesis_serving(card: str, device: str, world: dict, stage: dict, sz: dict) -> None:
+    """The serving CLI loads a synthesizer checkpoint and reports mel_mcd
+    and mel_pearson_r on trials with audio; on each seed's test trials,
+    decoded in batches of the trainer's size, its mels equal evaluate's
+    within rtol/atol 1e-3."""
+    from decode_tonal_langauge_tpu_torch import serving
+    from decode_tonal_langauge_tpu_torch.data.splits import split_indices
+
+    paths, out = world["paths"], stage["out"]
+    ckpt = os.path.join(out, "ckpts", "SynthesisFull_seed_{}")
+    seed = stage["fits"][0]["seed"]
+    serve_dir = os.path.join(out, "served")
+    summary = serving.run(serving.build_parser().parse_args([
+        "--sample_path", paths["sample"], "--channel_file", paths["channels"],
+        "--config_file", paths["config"], "--tone_model_name", "CNNRNN",
+        "--tone_model_path", paths["tone"], "--syllable_model_name", "CNN",
+        "--syllable_model_path", paths["syll"], "--synthesis_model_name", "SynthesisFull",
+        "--synthesis_model_path", ckpt.format(seed), "--audio_sampling_rate", str(SYN_SR),
+        "--output_dir", serve_dir, "--n_wavs", "2", "--device", device]))
+    check(summary["n_trials"] == sz["trials"] and np.isfinite(summary["mel_mcd"])
+          and np.isfinite(summary["mel_pearson_r"]), f"serving summary {summary}")
+    worst = 0.0
+    for f in stage["fits"]:
+        decoder = serving.load_decoder(
+            world["channels"], world["config"], SYN_LENGTH, "CNNRNN", paths["tone"],
+            "CNN", paths["syll"], synthesis_model_name="SynthesisFull",
+            synthesis_model_path=ckpt.format(f["seed"]), device=device)
+        te = split_indices(sz["trials"], [0.9, 0.1], seed=f["seed"])[-1]
+        ecog = world["ecog"][te]
+        served = np.concatenate([
+            decoder.decode(ecog[lo:lo + SYN_BATCH], world["channels"])["mel"]
+            for lo in range(0, len(te), SYN_BATCH)])
+        recon = f["result"][2]
+        worst = max(worst, float(np.abs(served - recon).max()))
+        check(np.allclose(served, recon, rtol=1e-3, atol=1e-3),
+              f"seed {f['seed']}: served mels vs evaluate's, max abs diff "
+              f"{np.abs(served - recon).max()}")
+    print(f"serving: the SynthesisFull checkpoint of seed {seed} on all {sz['trials']} "
+          f"trials: mel_mcd {summary['mel_mcd']:.4f}, mel_pearson_r "
+          f"{summary['mel_pearson_r']:.4f}; served test mels vs evaluate's max abs diff "
+          f"{worst:.3g} (both seeds, batches of {SYN_BATCH}) [{card}]")
+
+
+def synthesis_steps(card: str, device: str, world: dict, sz: dict) -> None:
+    """The train step timed at batch 8 and 32 (card only), then two NAdam
+    steps of SynthesisFull (dropout 0) card vs CPU vs float64 with the
+    TF32 control."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.models.base import init_params
+    from decode_tonal_langauge_tpu_torch.models.factory import get_classifier_by_name
+    from decode_tonal_langauge_tpu_torch.models.synthesis import SynthesisModelCNN
+    from decode_tonal_langauge_tpu_torch.training.synthesis_trainer import SynthesisTrainer
+
+    rng = np.random.default_rng(11)
+    mel_dim = sz["n_mels"] * 20
+
+    def batch(n):
+        w = np.ones(n, np.float32)
+        w[-1] = 0.0  # a padding row
+        return tuple(torch.from_numpy(a) for a in (
+            rng.standard_normal((n, sz["non"], SYN_LENGTH)).astype(np.float32),
+            rng.integers(0, 2, (n, 2, sz["n_dyn"])).astype(np.float32),
+            (rng.standard_normal((n, mel_dim)) * 10 - 40).astype(np.float32), w))
+
+    def l1(model, b):
+        out = model(b[0], b[1])
+        return ((out - b[2]).abs().mean(dim=1) * b[3]).sum() / b[3].sum()
+
+    if device == "cuda":
+        classifiers = [init_params(get_classifier_by_name(name, k, sz["cls"], SYN_LENGTH),
+                                   seed=0) for name, k in (("CNNRNN", N_TONES), ("CNN", N_SYLLS))]
+        trainer = SynthesisTrainer(SynthesisModelCNN(mel_dim, sz["non"], SYN_LENGTH),
+                                   *classifiers, world["config"]["tone_dynamic_mapping"],
+                                   learning_rate=SYN_LR, schedule_decay=SYN_DECAY, seed=4,
+                                   verbose=False, device=device)
+        trainer.init()
+        train_step_times(card, {f"SynthesisFull b{n}": (trainer, tuple(t.to(device) for t in batch(n)))
+                                for n in (SYN_BATCH, 32)})
+        del trainer
+    model = init_params(SynthesisModelCNN(mel_dim, sz["non"], SYN_LENGTH, dropout=0.0), seed=4)
+    held_step_parity(card, "SynthesisFull", model, batch(SYN_BATCH), device, l1,
+                     learning_rate=SYN_LR, weight_decay=SYN_DECAY, decay_all=True)
+
+
+def synthesis_phase(card: str, device: str = "cuda", sizes: dict = SYN_FULL) -> None:
+    """The data path, then synthesizer training at the paper's SynthesisFull
+    widths through ``train_synthesizer.run`` with its checks, serving of
+    its checkpoints, card vs CPU step parity and the step timings (card
+    only). ``device="cpu", sizes=SYN_REHEARSAL`` rehearses it on a CPU."""
+    from decode_tonal_langauge_tpu_torch.ops import cuda_iir
+
+    cuda_iir.LAUNCHES = 0
+    data_path_phase(device)
+    with tempfile.TemporaryDirectory() as root:
+        world = write_synthesis_world(root, sizes)
+        stage = synthesis_stage(card, device, root, world, sizes)
+        synthesis_serving(card, device, world, stage, sizes)
+    synthesis_steps(card, device, world, sizes)
+    print(f"K1 launches during the synthesizer phase: {cuda_iir.LAUNCHES}")
+    check(cuda_iir.LAUNCHES == 0, "K1 launched during the synthesizer phase")
 
 
 def write_artifacts(root: str, rng) -> dict:
@@ -960,11 +1444,18 @@ def main() -> None:
 
     from decode_tonal_langauge_tpu_torch.ops import cuda_iir
 
-    kernels = [k1_phase(card)]
-    preprocess_phase(card)
-    training_phase(card)
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    kernels = [timed(k1_phase, card)]
+    timed(preprocess_phase, card)
+    timed(training_phase, card)
+    timed(synthesis_phase, card)
     cuda_iir.LAUNCHES = 0
-    serving_phase(card)
+    timed(serving_phase, card)
     print(f"K1 launches during the serving phase: {cuda_iir.LAUNCHES}")
 
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Configuration helpers: YAML loading, namespace views, hashed names.
 
 Counterpart of the part of ``decode_tonal_langauge_tpu/config.py`` that
-the preprocess and classifier-training stages use. ``yaml`` is imported
+the preprocess, sample-collection and classifier-training stages use,
+with the provenance chaining of ``config.yaml``. ``yaml`` is imported
 where a file is read or written. :func:`generate_hash_name_from_config`
 hashes exactly as the JAX package does, so both packages name an
 experiment's log directory alike.
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 from argparse import Namespace
 from typing import Any, Dict, Iterable, Optional
 
@@ -54,6 +56,22 @@ def namespace_to_dict(ns: Any) -> Any:
     if isinstance(ns, (list, tuple)):
         return [namespace_to_dict(v) for v in ns]
     return ns
+
+
+def update_configuration(
+    output_path: str,
+    previous_config_path: str,
+    new_module: str,
+    new_module_cfg: dict,
+) -> None:
+    """Provenance chaining: the upstream stage's ``config.yaml`` (empty
+    when absent) with this stage's section set, written to
+    ``output_path``."""
+    previous_cfg = {}
+    if os.path.exists(previous_config_path):
+        previous_cfg = load_config(previous_config_path) or {}
+    previous_cfg[new_module] = new_module_cfg
+    save_config(output_path, previous_cfg)
 
 
 def _stable_json(config: Any) -> str:

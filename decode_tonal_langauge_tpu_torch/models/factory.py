@@ -82,9 +82,12 @@ def get_classifier_by_name(
 
 
 def build_synthesis_model(
-    name: str, output_dim: int, n_channels: int, n_timepoints: int
+    name: str, output_dim: int, n_channels: int, n_timepoints: int,
+    dtype: str = "float32",
 ) -> nn.Module:
-    """``SynthesisFull`` (SynthesisModelCNN) or ``SynthesisLite``."""
+    """``SynthesisFull`` (SynthesisModelCNN) or ``SynthesisLite``; a
+    compute ``dtype`` other than float32 raises."""
+    _check_dtype({"dtype": dtype})
     if name not in SYNTHESIS_MODELS:
         raise ValueError(
             f"Unknown synthesis model '{name}'; expected one of "

@@ -4,7 +4,10 @@ Counterparts of ``decode_tonal_langauge_tpu/models/synthesis.py``. Both
 take non-discriminative ECoG channels (B, C, T) and label-dynamics
 sequences (B, 2, n_dynamics) and return a flattened mel vector
 (B, output_dim). Convolutions run in NCHW / NCL; flattens and concats
-follow the JAX (channels-last) order.
+follow the JAX (channels-last) order. Dropout draws its mask from the
+generator the trainer sets (``ops/dropout.py``); SynthesisLite's batch
+norm trains as Flax's does (:class:`BatchNorm1d`). The heads compute in
+their weights' dtype (f32, or f64 for a float64 reference run).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import Dropout
 from ..ops.lstm import TimeBatchedLSTM
 from ..ops.stencil import StencilConvPoolLeaky
 from .base import conv_output_length
@@ -28,6 +32,37 @@ def synthesis_cnn_latent_length(n_timepoints: int) -> int:
     t = conv_output_length(t, 1)
     t = conv_output_length(t, 2, stride=2)
     return conv_output_length(t, 1)
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """Flax's ``nn.BatchNorm`` over the channels of (B, C, T).
+
+    In train mode it normalises with the biased batch statistics, Flax's
+    ``E[x^2] - E[x]^2`` clipped at 0, and updates the running mean and
+    variance with those same statistics: ``ra = 0.99 * ra + 0.01 * stat``
+    (Flax's momentum 0.99, torch's 0.01). ``nn.BatchNorm1d`` would update
+    the running variance with the unbiased batch variance, n / (n - 1)
+    times Flax's. Both modes compute ``(x - mean) * (rsqrt(var + eps) *
+    scale) + bias`` as Flax does. The state dict keeps ``nn.BatchNorm1d``'s
+    keys."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.01) -> None:
+        super().__init__(num_features, eps=eps, momentum=momentum)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean = x.mean(dim=(0, 2))
+            var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                keep = 1.0 - self.momentum
+                self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
+                self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
 
 
 class SynthesisModelCNN(nn.Module):
@@ -57,7 +92,7 @@ class SynthesisModelCNN(nn.Module):
             nn.Conv2d(512, 256, (1, 1)),
             nn.Conv2d(256, conv_channels, (1, 1)),
         ])
-        self.ecog_dropout = nn.Dropout(dropout)
+        self.ecog_dropout = Dropout(dropout)
         self.label_lstm = TimeBatchedLSTM(
             2, self.latent_len * n_channels * lstm_channels
         )
@@ -88,15 +123,15 @@ class SynthesisModelCNN(nn.Module):
         y = torch.cat([x, x2], dim=1)  # concat on features
         for conv in self.concat_convs:
             y = F.leaky_relu(conv(y), 0.1)
-        return self.output_layer(_flatten_nhwc(y)).float()
+        y = _flatten_nhwc(y).to(self.output_layer.weight.dtype)
+        return self.output_layer(y)
 
 
 class SynthesisLite(nn.Module):
     """Lightweight synthesis model. ECoG: 2x [Conv1d + BatchNorm +
     MaxPool(2) + LeakyReLU]; labels: LSTM(label_dim -> lstm_hidden) final
     state; concat -> Dropout -> Dense(512) -> Dense(output_dim). BatchNorm
-    serves with running statistics (eps 1e-5; Flax's momentum 0.99 is
-    torch's 0.01)."""
+    is Flax's (:class:`BatchNorm1d`, eps 1e-5, momentum 0.99)."""
 
     def __init__(self, output_dim: int, n_channels: int,
                  n_timepoints: int = 200, label_dim: int = 2,
@@ -105,11 +140,11 @@ class SynthesisLite(nn.Module):
         super().__init__()
         self.negative_slope = negative_slope
         self.conv1 = nn.Conv1d(n_channels, conv_channels, 5, padding=2)
-        self.bn1 = nn.BatchNorm1d(conv_channels, eps=1e-5, momentum=0.01)
+        self.bn1 = BatchNorm1d(conv_channels)
         self.conv2 = nn.Conv1d(conv_channels, conv_channels, 3, padding=1)
-        self.bn2 = nn.BatchNorm1d(conv_channels, eps=1e-5, momentum=0.01)
+        self.bn2 = BatchNorm1d(conv_channels)
         self.label_lstm = TimeBatchedLSTM(label_dim, lstm_hidden)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         t_out = n_timepoints // 2 // 2
         self.fc1 = nn.Linear(t_out * conv_channels + lstm_hidden, 512)
         self.fc2 = nn.Linear(512, output_dim)
@@ -125,4 +160,4 @@ class SynthesisLite(nn.Module):
         lbl = self.label_lstm(x_label.transpose(1, 2))[:, -1, :]
         y = self.drop(torch.cat([x, lbl], dim=-1))
         y = F.leaky_relu(self.fc1(y), slope)
-        return self.fc2(y).float()
+        return self.fc2(y.to(self.fc2.weight.dtype))

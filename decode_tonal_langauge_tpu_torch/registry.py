@@ -2,9 +2,10 @@
 
 Counterpart of ``decode_tonal_langauge_tpu/registry.py``: config module
 names (the reference repo's dotted paths, or short names) map onto the
-port's modules, and any other dotted path is imported as given. This
-slice holds the preprocess stage's names; the other stages' names come
-with their slices.
+port's modules, and any other dotted path is imported as given. It holds
+the names of the stages the port has (preprocess, sample collection,
+classifier training) and of the classifier classes; the other stages'
+names come with their slices.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ _ALIASES: Dict[str, str] = {
     # and the reference's path "preprocess.signal.<op>"
     **{f"preprocess.{s}": f"{_PKG}.preprocess.signal.{s}" for s in _STEPS},
     **{f"preprocess.signal.{s}": f"{_PKG}.preprocess.signal.{s}" for s in _STEPS},
+    "extract_samples": f"{_PKG}.data.extract_samples",
     "train_classifier": f"{_PKG}.training.train_classifier",
     # model classes, as the `model:` config section names them
     "models.simple_classifiers.LogisticRegressionClassifier": f"{_PKG}.models.simple.LogisticRegressionClassifier",

@@ -32,19 +32,22 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 @contextlib.contextmanager
-def exact_f32():
+def exact_f32(deterministic: bool = False):
     """cuDNN convolutions in full f32 for the duration of the block.
 
     cuDNN defaults to TF32 (about three decimal digits), which would break
     argmax parity with the JAX reference. Matmuls already default to full
     f32 (``torch.backends.cuda.matmul.allow_tf32`` is False) and are left
-    alone. The caller's flags are restored on exit.
+    alone. ``deterministic`` also restricts cuDNN to its deterministic
+    algorithms (some weight- and data-gradient algorithms sum with
+    atomics, so two runs of one step differ in the last bits). The
+    caller's flags are restored on exit.
     """
     cudnn = torch.backends.cudnn
     with cudnn.flags(
         enabled=cudnn.enabled,
-        benchmark=cudnn.benchmark,
-        deterministic=cudnn.deterministic,
+        benchmark=cudnn.benchmark and not deterministic,
+        deterministic=cudnn.deterministic or deterministic,
         allow_tf32=False,
     ):
         yield

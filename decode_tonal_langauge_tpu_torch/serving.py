@@ -24,7 +24,9 @@ from the JAX package's Orbax checkpoints. CLI:
 or ``--stream_recording rec.npz --stream_window_s 0.5 [--stream_hop_s
 0.1]`` in place of ``--sample_path`` for a sliding-window decode. Writes
 ``predictions.csv`` (or ``windows.csv`` + ``events.csv``), ``mels.npz``,
-the first N ``decoded_*.wav`` and ``summary.json``.
+the first N ``decoded_*.wav`` and ``summary.json``. When the epoch npz
+carries ``audio``, the summary adds the decoded mels' MCD and Pearson r
+against the true audio's mels.
 """
 
 from __future__ import annotations
@@ -398,6 +400,10 @@ def run(params: argparse.Namespace) -> Dict[str, Any]:
     if "mel" in out:
         np.savez(os.path.join(params.output_dir, "mels.npz"), mel=out["mel"],
                  n_mels=np.asarray(mel_kwargs.get("n_mels", 128)))
+        if "audio" in dataset:
+            summary.update(_mel_quality(out["mel"], dataset["audio"],
+                                        params.audio_sampling_rate, mel_kwargs,
+                                        decoder.device))
         summary["n_wavs"] = _write_wavs(params, decoder, out["mel"], mel_kwargs,
                                         "decoded_{}.wav")
 
@@ -496,6 +502,25 @@ def _run_stream(params, decoder, recording, sf, window, hop,
         summary["n_wavs"] = _write_wavs(params, decoder, out["mel"], mel_kwargs,
                                         "decoded_w{}.wav")
     return _write_summary(params.output_dir, summary)
+
+
+def _mel_quality(mels, audio, sr, mel_kwargs, device) -> Dict[str, float]:
+    """Synthesis quality of decoded mels against the mels of the true
+    audio: ``mel_mcd`` (dB) and ``mel_pearson_r``; nothing, with a
+    warning, when the shapes differ (mel_kwargs unlike the training
+    config's)."""
+    from .training.synthesis_trainer import compute_mcd
+    from .utils.audio import audio_to_mel
+
+    true_mels = np.stack([audio_to_mel(a, sr, mel_kwargs=mel_kwargs, device=device)
+                          for a in audio]).astype(np.float32)
+    if true_mels.shape != mels.shape:
+        print("WARNING: skipping mel quality metrics: ground-truth mels "
+              f"{true_mels.shape} vs decoded {mels.shape} (mel_kwargs mismatch "
+              "with the training config?)")
+        return {}
+    return {"mel_mcd": compute_mcd(true_mels, mels),
+            "mel_pearson_r": float(np.corrcoef(mels.ravel(), true_mels.ravel())[0, 1])}
 
 
 def _write_wavs(params, decoder, mels, mel_kwargs, pattern) -> int:

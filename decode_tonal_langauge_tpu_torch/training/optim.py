@@ -5,10 +5,12 @@ optimizer is ``optax.chain(add_decayed_weights(wd, mask=ndim >= 2),
 nadam(lr))``. That is not ``torch.optim.NAdam`` (which adds a
 momentum-decay schedule) nor AdamW (whose decay is decoupled): the decay
 is an L2 term added to the gradient before NAdam, on parameters of two or
-more dimensions only. One step, with ``t`` the step count after
+more dimensions only. The synthesizer's optimizer
+(``training/synthesis_trainer.py``) decays every parameter: that is
+``decay_all=True``. One step, with ``t`` the step count after
 increment::
 
-    g      = grad + wd * p                     (ndim >= 2 only)
+    g      = grad + wd * p                     (ndim >= 2, or every p)
     mu     = (1 - b1) * g + b1 * mu
     nu     = (1 - b2) * g * g + b2 * nu
     mu_hat = b1 * mu / (1 - b1**(t+1)) + (1 - b1) * g / (1 - b1**t)
@@ -53,7 +55,9 @@ def _bias_correction(decay: float, count: int) -> float:
 class NAdam:
     """The optax NAdam update on a list of tensors or a module's
     parameters. ``step(grads)`` takes the gradients in parameter order
-    (``None``: each parameter's ``.grad``)."""
+    (``None``: each parameter's ``.grad``). Weight decay reaches the
+    parameters of :func:`decay_mask`, or every parameter with
+    ``decay_all``."""
 
     def __init__(
         self,
@@ -64,6 +68,7 @@ class NAdam:
         b2: float = 0.999,
         eps: float = 1e-8,
         moment_dtype=None,
+        decay_all: bool = False,
     ) -> None:
         if isinstance(params, nn.Module):
             params = params.parameters()
@@ -72,7 +77,7 @@ class NAdam:
         self.weight_decay = weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
         self.moment_dtype = _moment_dtype(moment_dtype)
-        self.decay = decay_mask(self.params)
+        self.decay = [True] * len(self.params) if decay_all else decay_mask(self.params)
         dtype = lambda p: self.moment_dtype or p.dtype  # noqa: E731
         self.mu = [torch.zeros_like(p, dtype=dtype(p)) for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=dtype(p)) for p in self.params]

@@ -4,7 +4,8 @@ Counterpart of ``decode_tonal_langauge_tpu/utils/audio.py``:
 ``audio_to_mel`` returns the flattened dB mel with ``power_to_db(ref=max)``;
 the inverse uses ``db_to_power(ref=1e-4)`` (the reference's deliberately
 asymmetric ref) -> NNLS mel inversion -> Griffin-Lim. Numpy in, numpy out;
-the DSP runs on ``device`` (``None`` means CUDA).
+the DSP runs on ``device`` (``None`` means CUDA). The mel figures import
+matplotlib when they draw, so the port imports without it.
 """
 
 from __future__ import annotations
@@ -107,6 +108,66 @@ def mel_to_audio(mel: np.ndarray, n_mels: int, **kwargs) -> np.ndarray:
     :func:`mels_to_audio`, same keyword arguments)."""
     mel = np.asarray(mel, dtype=np.float32).reshape(1, -1)
     return mels_to_audio(mel, n_mels, **kwargs)[0]
+
+
+def visualise_mel(
+    mel: np.ndarray,
+    audio_sampling_rate: float = 24414,
+    mel_in_db: bool = True,
+    file_path: Optional[str] = None,
+    show: bool = True,
+    ax=None,
+) -> None:
+    """Heatmap of a (n_mels, n_frames) mel spectrogram."""
+    import matplotlib
+
+    if file_path:
+        matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    own_figure = ax is None
+    if own_figure:
+        fig, ax = plt.subplots(figsize=(10, 4))
+    im = ax.imshow(mel, aspect="auto", origin="lower", cmap="coolwarm")
+    ax.set_xlabel("Frame")
+    ax.set_ylabel("Mel bin")
+    plt.colorbar(im, ax=ax, format="%+2.0f dB" if mel_in_db else "%+2.0f")
+    if own_figure:
+        ax.set_title("Mel Spectrogram")
+        fig.tight_layout()
+        if file_path:
+            fig.savefig(file_path, dpi=150)
+            plt.close(fig)
+        elif show:
+            plt.show()
+
+
+def compare_mels(
+    mel1: np.ndarray,
+    mel2: np.ndarray,
+    audio_sampling_rate: float = 24414,
+    title1: str = "Mel Spectrogram 1",
+    title2: str = "Mel Spectrogram 2",
+    mel_in_db: bool = True,
+    file_path: Optional[str] = None,
+) -> None:
+    """Side-by-side mel figure (origin vs reconstruction)."""
+    import matplotlib
+
+    if file_path:
+        matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, axes = plt.subplots(1, 2, figsize=(15, 6))
+    for ax, mel, title in ((axes[0], mel1, title1), (axes[1], mel2, title2)):
+        visualise_mel(mel, audio_sampling_rate, mel_in_db, ax=ax, show=False)
+        ax.set_title(title)
+    fig.tight_layout()
+    if file_path:
+        fig.savefig(file_path, dpi=150)
+        plt.close(fig)
+    else:
+        plt.show()
 
 
 def write_wav(path: str, wave: np.ndarray, sr: int) -> None:

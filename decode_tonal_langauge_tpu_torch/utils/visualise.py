@@ -1,14 +1,15 @@
-"""Preprocessing and confusion figures (matplotlib, headless).
+"""Preprocessing, confusion and loss-curve figures (matplotlib, headless).
 
-Counterparts of ``plot_preprocessing_step`` and ``plot_confusion_matrix``
-in ``decode_tonal_langauge_tpu/utils/visualise.py``. matplotlib is
-imported when a figure is drawn, so the port imports without it.
+Counterparts of ``plot_preprocessing_step``, ``plot_confusion_matrix`` and
+``plot_training_losses`` in ``decode_tonal_langauge_tpu/utils/visualise.py``.
+matplotlib is imported when a figure is drawn, so the port imports
+without it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -103,6 +104,36 @@ def plot_confusion_matrix(
     ax.set_xlabel("Predicted")
     ax.set_ylabel("True")
     ax.set_title(title)
+    fig.tight_layout()
+    if figure_path:
+        fig.savefig(figure_path, dpi=150, bbox_inches="tight")
+    else:
+        plt.show()
+    plt.close(fig)
+
+
+def plot_training_losses(
+    history: List[Tuple[float, float]],
+    labels: Tuple[str, str] = ("loss", "mcd"),
+    figure_path: Optional[str] = None,
+) -> None:
+    """Per-epoch curves of a (loss, second metric) history, the second on
+    its own axis; saved to ``figure_path`` (or shown when it is None)."""
+    import matplotlib
+
+    if figure_path:
+        matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    hist = np.asarray(history, dtype=float)
+    fig, ax1 = plt.subplots(figsize=(10, 5))
+    ax1.plot(hist[:, 0], color="tab:blue", label=labels[0])
+    ax1.set_xlabel("Epoch")
+    ax1.set_ylabel(labels[0], color="tab:blue")
+    if hist.shape[1] > 1:
+        ax2 = ax1.twinx()
+        ax2.plot(hist[:, 1], color="tab:orange", label=labels[1])
+        ax2.set_ylabel(labels[1], color="tab:orange")
     fig.tight_layout()
     if figure_path:
         fig.savefig(figure_path, dpi=150, bbox_inches="tight")

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX
-package (nor sklearn, pandas, matplotlib or tensorboardX, which the card's
-machine lacks), and its entry points default to CUDA instead of falling
-back to the CPU."""
+package (nor flax, optax, sklearn, pandas, matplotlib or tensorboardX,
+which the card's machine lacks), and its entry points default to CUDA
+instead of falling back to the CPU: serving, preprocessing, classifier
+and synthesizer training, and sample extraction."""
 
 import os
 import subprocess
@@ -39,16 +40,23 @@ torch.cuda.is_available = lambda: False  # a machine without a card
 
 from argparse import Namespace
 
-from decode_tonal_langauge_tpu_torch.models.factory import get_classifier_by_name
+from decode_tonal_langauge_tpu_torch.data import extract_samples
+from decode_tonal_langauge_tpu_torch.models.factory import (
+    build_synthesis_model,
+    get_classifier_by_name,
+)
 from decode_tonal_langauge_tpu_torch.preprocess import main as preprocess_main
 from decode_tonal_langauge_tpu_torch.preprocess.preprocessor import preprocess_signal
 from decode_tonal_langauge_tpu_torch.runtime.device import resolve_device
 from decode_tonal_langauge_tpu_torch.serving import TonalDecoder
-from decode_tonal_langauge_tpu_torch.training import train_classifier
+from decode_tonal_langauge_tpu_torch.training import train_classifier, train_synthesizer
+from decode_tonal_langauge_tpu_torch.training.synthesis_trainer import SynthesisTrainer
 from decode_tonal_langauge_tpu_torch.training.trainer import ClassifierTrainer
 from decode_tonal_langauge_tpu_torch.utils.audio import audio_to_mel, mels_to_audio
 
 model = get_classifier_by_name("logistic", 2, 2, 4)
+synth = build_synthesis_model("SynthesisLite", 8, 2, 4)
+synth_data = [np.zeros((4, 2, 4), np.float32)] * 3 + [np.zeros((4, 8), np.float32)]
 steps = [{"module": "channel_zscore"}]
 calls = [
     lambda: resolve_device(None),
@@ -60,6 +68,13 @@ calls = [
     lambda: train_classifier.run({"training": {"params": {}}}),
     lambda: ClassifierTrainer(model, 2).fit(*([np.zeros((4, 2, 4), np.float32),
                                               np.zeros(4, np.int64)] * 2)),
+    lambda: SynthesisTrainer(synth, model, model, {"0": [0.0]}).train(synth_data, 1),
+    lambda: train_synthesizer.main(["--sample_path", "s.npz", "--subject_id", "1",
+                                    "--result_file", "r.csv", "--model_name", "m",
+                                    "--synthesis_model_name", "SynthesisLite",
+                                    "--syllable_model_name", "logistic",
+                                    "--tone_model_name", "logistic"]),
+    lambda: extract_samples.run({"sample_collection": {"params": {}}}),
 ]
 for call in calls:
     try:
@@ -69,6 +84,9 @@ for call in calls:
     else:
         raise AssertionError("an entry point ran without a card")
 assert str(TonalDecoder(model, model, {"0": [0.0]}, device="cpu").device) == "cpu"
+trainer = SynthesisTrainer(synth, model, model, {"0": [0.0], "1": [1.0]}, verbose=False,
+                           device="cpu")
+assert len(trainer.train(synth_data, 1, batch_size=4, verbose=False)) == 1
 out, _ = preprocess_signal(np.ones((2, 8), np.float32), steps, Namespace(signal_freq=8.0),
                            device="cpu")
 assert out.device.type == "cpu"
