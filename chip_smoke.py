@@ -72,7 +72,22 @@ present, or when the port's sources are not beside it.
    window 200, hop 40: 596 windows), then the same epoch decode on the
    card and on the CPU, which must agree. Prints trials/s, windows/s and
    waves/s beside the card's name and power limit.
-7. Prints each phase's wall time, the ``kernels`` JSON line, then the
+7. Pipeline phase: ``configs/example_config.yaml`` through
+   ``pipeline.run_pipeline`` on the card (preprocess, sample collection,
+   channel selection, training, evaluation, visualisation) on a synthetic
+   subject (``data/synthetic``) of 128 channels at 1000 Hz, 2 blocks x 160
+   trials (4 tones x 2 syllables), 0.5 s epochs, active / tone / syllable
+   selection at p 0.05 and 0.05 s, the CNN syllable and CNN-RNN (lstm_dim
+   800) tone pair, 2 seeds x 3 epochs at batch 32 with checkpoints. Checks
+   each stage's output and its threading, the planted channels in each
+   set, the stage's JSON equal on a warm rerun and on the CPU and p within
+   rtol 1e-4 (p < 1e-3) / atol 1e-3 of the CPU's, evaluation rows equal to
+   training's, ``serving --training_dir`` on the subject and on the first
+   seed's test trials in the trainer's batches (ids equal to the
+   trainer's), no figures without matplotlib, K1 0 launches; prints the
+   stage timing, the wall, peak memory, and each ANOVA's wall, device time
+   and operations (``torch.profiler``).
+8. Prints each phase's wall time, the ``kernels`` JSON line, then the
    final ``ok`` JSON line.
 """
 
@@ -1419,6 +1434,276 @@ def serving_phase(card: str, device: str = "cuda") -> None:
               f"{t_waves * 1e3:.1f} ms) [{card}]")
 
 
+# The pipeline phase: configs/example_config.yaml through pipeline.run_pipeline
+# on a synthetic subject of 128 channels, raw at 1000 Hz, 2 blocks x 160
+# trials (4 tones x 2 syllables, 40 trials a class), 0.5 s epochs, the
+# paper's CNN syllable / CNN-RNN tone pairing at full width. A rehearsal
+# size runs the same code on a CPU.
+PIPE_FULL = dict(channels=128, trials_per_block=160, lstm_dim=800)
+PIPE_REHEARSAL = dict(channels=16, trials_per_block=16, lstm_dim=200)
+PIPE_SF, PIPE_EPOCH_S, PIPE_BATCH = 1000.0, 0.5, 32
+# p against the CPU (tests/test_torch_channel_selection.py): rtol 1e-4 where
+# p < 1e-3 (down to 1e-30, below which both only stay below it), atol 1e-3
+# elsewhere (float32 forms x = dfd/(dfd + dfn*F), which moves p near 1).
+P_RTOL, P_ATOL, P_SMALL, P_FLOOR = 1e-4, 1e-3, 1e-3, 1e-30
+
+
+def pipeline_config(root: str, sz: dict) -> dict:
+    """``configs/example_config.yaml`` with its paths under ``root`` and
+    the phase's sizes: 0.5 s epochs, channel figures off, the paper's
+    pairing through ``model.per_target``, 2 seeds x 3 epochs at batch 32,
+    checkpoints, and the evaluation stage on."""
+    from decode_tonal_langauge_tpu_torch.config import load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(here, "configs", "example_config.yaml"))
+    pre = cfg["preprocess"]["params"]
+    pre["io"]["params"].update(root_dir=f"{root}/raw", output_dir=f"{root}/processed")
+    collect = cfg["sample_collection"]["params"]
+    collect["io"].update(output_dir=f"{root}/samples", textgrid_root=f"{root}/raw")
+    collect["subjects"][1]["sample_length"] = PIPE_EPOCH_S
+    cfg["channel_selection"]["params"]["io"]["output_dir"] = f"{root}/selection"
+    cfg["model"] = {
+        "model": "models.deep_classifiers.CNNClassifier", "model_name": "CNN",
+        "model_kwargs": {},
+        "per_target": {"tone": {"model": "models.deep_classifiers.CNNRNNClassifier",
+                                "model_kwargs": {"lstm_dim": sz["lstm_dim"]}}},
+    }
+    train = cfg["training"]["params"]
+    train["io"]["log_dir"] = f"{root}/logs"
+    train["experiment"]["repeat"] = 2
+    train["training"].update(batch_size=PIPE_BATCH, epochs=3, patience=60,
+                             save_checkpoints=True)
+    cfg["evaluation"]["module"] = "evaluation_main"
+    cfg["evaluation"]["metrics"] = ["accuracy", "f1_score"]  # no confusion figure
+    return cfg
+
+
+def p_close(got: np.ndarray, want: np.ndarray) -> bool:
+    small = (want < P_SMALL) & (want >= P_FLOOR)
+    return bool(np.allclose(got[small], want[small], rtol=P_RTOL, atol=0)
+                and np.allclose(got[~(want < P_SMALL)], want[~(want < P_SMALL)],
+                                rtol=0, atol=P_ATOL)
+                and (got[want < P_FLOOR] < P_FLOOR).all())
+
+
+def anova_times(card: str, sample_path: str, device: str) -> None:
+    """Wall, device time and launches of the stage's two ANOVAs on the
+    phase's data (torch.profiler), on the card only."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch._timing import device_events
+    from decode_tonal_langauge_tpu_torch.ops import anova
+
+    data = np.load(sample_path)
+    rest = torch.as_tensor(data["ecog_rest"], device=device)
+    erp = torch.as_tensor(data["ecog"], device=device)
+    _, tone = np.unique(data["tone"], return_inverse=True)
+    calls = {
+        "active (two groups)": lambda: anova.f_oneway_two_groups(rest, erp),
+        "tone (4 groups)": lambda: anova.f_oneway_labeled(erp, tone, 4),
+    }
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        rows = device_events(fn, runs=5)
+        check(rows, f"torch.profiler saw no device time for the {name} ANOVA")
+        busy = sum(r[0] for r in rows)
+        launches = sum(r[1] for r in rows)
+        wall_ms = 1e3 * float(np.median(walls))
+        print(f"ANOVA {name}, {erp.shape[1]} x {erp.shape[2]} x ({erp.shape[0]} + "
+              f"{rest.shape[0]} rest) trials: {wall_ms:.2f} ms wall (median of 5), "
+              f"{busy:.3f} ms device ({100 * busy / wall_ms:.1f}% busy), "
+              f"{launches:.0f} device operations [{card}]")
+        for ms, n, op in rows[:4]:
+            print(f"    {ms:8.4f} ms  x{n:<6g} {op[:100]}")
+
+
+def pipeline_serving(card: str, device: str, outputs: dict, fits: dict, seeds) -> None:
+    """``serving --training_dir`` on the subject's npz, then on the first
+    seed's test trials in the trainer's padded batches (its own padding):
+    those ids must equal the trainer's test predictions."""
+    from decode_tonal_langauge_tpu_torch import serving
+    from decode_tonal_langauge_tpu_torch.data.splits import split_indices
+
+    sample = os.path.join(outputs["sample_collection"], "subject_1.npz")
+    data = np.load(sample)
+    n = data["ecog"].shape[0]
+    dev = [] if device == "cuda" else ["--device", device]
+    out_dir = os.path.join(os.path.dirname(outputs["training"]), "served")
+    t0 = time.perf_counter()
+    summary = serving.run(serving.build_parser().parse_args(
+        ["--training_dir", outputs["training"], "--sample_path", sample,
+         "--output_dir", out_dir, "--n_wavs", "0", "--device", device]))
+    wall = time.perf_counter() - t0
+    check(summary["n_trials"] == n and os.path.exists(os.path.join(out_dir, "predictions.csv")),
+          f"serving --training_dir summary {summary}")
+    ids = {k: np.array([int(r[f"{k}_pred"]) for r in read_csv(
+        os.path.join(out_dir, "predictions.csv"))]) for k in ("tone", "syllable")}
+
+    seed = int(seeds[0])
+    _, _, te = split_indices(n, [0.7, 0.1, 0.2], seed=seed)
+    pad = -len(te) % PIPE_BATCH
+    x = np.concatenate([data["ecog"][te], np.repeat(data["ecog"][te[:1]], pad, axis=0)])
+    batched = {"tone": [], "syllable": []}
+    for i, lo in enumerate(range(0, len(x), PIPE_BATCH)):
+        path = os.path.join(os.path.dirname(out_dir), f"test_batch_{i}.npz")
+        np.savez(path, ecog=x[lo:lo + PIPE_BATCH], ecog_sf=data["ecog_sf"])
+        chunk = os.path.join(os.path.dirname(out_dir), f"served_batch_{i}")
+        serving.run(serving.build_parser().parse_args(
+            ["--training_dir", outputs["training"], "--sample_path", path,
+             "--subject_id", "1", "--seed", str(seed), "--output_dir", chunk,
+             "--n_wavs", "0"] + dev))
+        for row in read_csv(os.path.join(chunk, "predictions.csv")):
+            for k in batched:
+                batched[k].append(int(row[f"{k}_pred"]))
+    for k in ("tone", "syllable"):
+        got = np.array(batched[k][:len(te)])
+        want = fits[k][seed]
+        check(np.array_equal(got, want),
+              f"serving --training_dir: {k} ids differ from the trainer's test "
+              f"predictions on {int((got != want).sum())} of {len(te)} trials")
+        whole = int((ids[k][te] != want).sum())
+        print(f"serving --training_dir: {k} ids equal to the trainer's on the {len(te)} "
+              f"test trials of seed {seed} (in batches of {PIPE_BATCH}); the one-pass "
+              f"decode of all {n} trials differs from them on {whole}")
+    print(f"serving --training_dir, {n} trials in one pass: {wall:.2f} s wall (models "
+          f"loaded from the run's provenance), tone accuracy "
+          f"{summary['tone_accuracy']:.3f}, syllable {summary['syllable_accuracy']:.3f} "
+          f"[{card}]")
+
+
+def pipeline_phase(card: str, device: str = "cuda", sizes: dict = PIPE_FULL) -> None:
+    """The YAML pipeline through ``pipeline.run_pipeline`` on the card:
+    preprocess, sample collection, channel selection, training,
+    evaluation and visualisation of one synthetic subject; then the
+    channel selection repeated on the CPU, evaluation held to training,
+    ``serving --training_dir``, the ANOVA's times, and K1's launches."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch import pipeline
+    from decode_tonal_langauge_tpu_torch.channel_selection import active, discriminative
+    from decode_tonal_langauge_tpu_torch.channel_selection import main as cs_main
+    from decode_tonal_langauge_tpu_torch.data.synthetic import SyntheticSpec, write_subject
+    from decode_tonal_langauge_tpu_torch.ops import cuda_iir
+    from decode_tonal_langauge_tpu_torch.training import classifier_pipeline
+    from decode_tonal_langauge_tpu_torch.utils.seeding import seed_stream
+
+    on_card = device == "cuda"
+    spec = SyntheticSpec(n_channels=sizes["channels"], ecog_sf=PIPE_SF, n_blocks=2,
+                         trials_per_block=sizes["trials_per_block"])
+    fits, fit_all = {}, classifier_pipeline._fit_eval_all_seeds
+
+    def recording(*args, target_str=None, **kwargs):  # the trainer's test predictions
+        results = fit_all(*args, target_str=target_str, **kwargs)
+        fits[target_str] = {r.seed: r.test_preds for r in results}
+        return results
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_subject(f"{root}/raw", 1, spec)
+        print(f"pipeline phase: synthetic subject of {spec.n_channels} channels at "
+              f"{PIPE_SF:.0f} Hz, 2 x {spec.trials_per_block} trials written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        config = pipeline_config(root, sizes)
+        classifier_pipeline._fit_eval_all_seeds = recording
+        cuda_iir.LAUNCHES = 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            outputs = pipeline.run_pipeline(config, device=None if on_card else device)
+            wall = time.perf_counter() - t0
+        finally:
+            classifier_pipeline._fit_eval_all_seeds = fit_all
+        k1 = cuda_iir.LAUNCHES
+        peak = torch.cuda.max_memory_allocated() / 2**20 if on_card else float("nan")
+        print(f"pipeline: {wall:.2f} s wall for all stages, peak {peak:.0f} MiB "
+              f"allocated, K1 launches {k1} [{card}]")
+        check(k1 == 0, "K1 launched during the pipeline phase")
+
+        # Each stage's output exists and was threaded downstream.
+        stages = ["preprocess", "sample_collection", "channel_selection", "training",
+                  "evaluation"]
+        check(all(s in outputs and os.path.isdir(outputs[s]) for s in stages),
+              f"stage outputs {outputs}")
+        io = {s: config[s]["params"]["io"] for s in stages[1:]}
+        threaded = [
+            io["sample_collection"]["recording_dir"] == outputs["preprocess"],
+            io["channel_selection"]["sample_dir"] == outputs["sample_collection"],
+            io["training"]["sample_dir"] == outputs["sample_collection"],
+            io["training"]["channel_selection_dir"] == outputs["channel_selection"],
+            io["evaluation"]["training_dir"] == outputs["training"],
+            config["visualisation"]["params"]["io"]["results_dir"] == outputs["training"],
+        ]
+        check(all(threaded), f"stage outputs not threaded downstream: {threaded}")
+        if on_card:
+            check("visualisation" not in outputs,
+                  "the visualisation stage made figures on a machine without matplotlib")
+
+        sample = os.path.join(outputs["sample_collection"], "subject_1.npz")
+        data = np.load(sample)
+        n = 2 * spec.trials_per_block
+        length = int(PIPE_EPOCH_S * 400)
+        check(data["ecog"].shape == (n, spec.n_channels, length)
+              and data["ecog_rest"].shape[1:] == (spec.n_channels, length)
+              and np.isfinite(data["ecog"]).all(),
+              f"sample npz ecog {data['ecog'].shape}, rest {data['ecog_rest'].shape}")
+        with open(os.path.join(outputs["channel_selection"], "subject_1.json")) as f:
+            selection = json.load(f)
+        planted = {"active_channels": set(spec.active_channels),
+                   "tone_discriminative": set(spec.tone_channels),
+                   "syllable_discriminative": set(spec.syllable_channels)}
+        for key, chans in planted.items():
+            check(set(selection[key]) & chans, f"{key} {selection[key]} holds none of "
+                  f"the planted channels {sorted(chans)}")
+        print("channel selection: " + ", ".join(
+            f"{k} {len(v)} ({len(set(v) & planted[k])} of {len(planted[k])} planted)"
+            for k, v in selection.items()))
+
+        # The stage again on the device (warm) and on the CPU: equal JSONs.
+        walls = {}
+        for where in (device, "cpu"):
+            again = {"channel_selection": json.loads(json.dumps(config["channel_selection"]))}
+            again["channel_selection"]["params"]["io"]["output_dir"] = f"{root}/selection_{where}"
+            t0 = time.perf_counter()
+            out_dir = cs_main.run(again, device=where)
+            walls[where] = time.perf_counter() - t0
+            with open(os.path.join(out_dir, "subject_1.json")) as f:
+                check(json.load(f) == selection,
+                      f"channel selection: the {where} rerun's JSON differs from the pipeline's")
+        print(f"channel-selection stage rerun (npz load, three ANOVAs, JSON): "
+              f"{walls[device]:.3f} s on {device} (warm), {walls['cpu']:.3f} s on the CPU "
+              f"[{card}]")
+        for sel in config["channel_selection"]["params"]["selections"]:
+            plugin = active if sel["module"].endswith("active") else discriminative
+            got = plugin.run(data, sel["params"], device=device)["p_values"]
+            want = plugin.run(data, sel["params"], device="cpu")["p_values"]
+            check(p_close(got, want), f"{sel['selection_name']}: card p vs CPU p beyond "
+                  f"rtol {P_RTOL} (p < {P_SMALL}) / atol {P_ATOL}")
+        print("channel selection: card JSON equal to the CPU's; p within rtol 1e-4 "
+              "(p < 1e-3) / atol 1e-3 of the CPU's for all three selections")
+
+        # Evaluation rows equal training rows; serving from --training_dir.
+        train_rows = read_csv(os.path.join(outputs["training"], "results.csv"))
+        eval_rows = read_csv(os.path.join(outputs["evaluation"], "results.csv"))
+        check([r["target"] for r in train_rows] == ["syllable, tone", "syllable", "tone"],
+              f"results.csv targets {[r['target'] for r in train_rows]}")
+        check(eval_rows == train_rows, "evaluation rows differ from the training rows")
+        print("evaluation: rows equal to training's; accuracy_all " + ", ".join(
+            f"{r['target']} {r['accuracy_all']}" for r in eval_rows))
+        seeds = [int(s) for s in seed_stream(42, 2)]
+        pipeline_serving(card, device, outputs, fits, seeds)
+        if on_card:
+            anova_times(card, sample, device)
+
+
 def main() -> None:
     import torch
 
@@ -1457,6 +1742,7 @@ def main() -> None:
     cuda_iir.LAUNCHES = 0
     timed(serving_phase, card)
     print(f"K1 launches during the serving phase: {cuda_iir.LAUNCHES}")
+    timed(pipeline_phase, card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,16 @@ classifier training (``training/``):
          the LSTM's hand-written backward in ``ops/lstm.py``), one per seed
       -> results.csv, per-seed histories, torch checkpoints
 
+channel selection (``channel_selection/``, ``ops/anova.py``):
+
+    sample npz
+      -> event-vs-rest and label-grouped ANOVA at every (channel, time)
+      -> Bonferroni + run-length filter -> per-subject channel JSON
+
+the evaluation and visualisation stages (``evaluation/``,
+``visualisation/``), the YAML pipeline runner that drives every stage
+from one config (``pipeline.py``; ``python -m
+decode_tonal_langauge_tpu_torch <config.yaml> [--device cpu]``),
 and the serving path:
 
     epochs (B, C, T)

@@ -1,8 +1,8 @@
 """Configuration helpers: YAML loading, namespace views, hashed names.
 
-Counterpart of the part of ``decode_tonal_langauge_tpu/config.py`` that
-the preprocess, sample-collection and classifier-training stages use,
-with the provenance chaining of ``config.yaml``. ``yaml`` is imported
+Counterpart of ``decode_tonal_langauge_tpu/config.py``, with the
+provenance chaining of ``config.yaml`` and the one flattening of a
+training run's provenance that training, evaluation and serving share. ``yaml`` is imported
 where a file is read or written. :func:`generate_hash_name_from_config`
 hashes exactly as the JAX package does, so both packages name an
 experiment's log directory alike.
@@ -93,3 +93,34 @@ def flatten_sections(cfg: Dict[str, Any], sections: Iterable[str]) -> Dict[str, 
     for section in sections:
         flat.update(cfg.get(section, {}) or {})
     return flat
+
+
+# Keys whose values stay raw dicts/lists when a training config (or its
+# provenance) is namespaced: free-form mappings consumed as dicts.
+PROVENANCE_EXCLUDE_KEYS = ("class_labels", "model_kwargs", "per_target")
+
+
+def flatten_training_provenance(provenance: Dict[str, Any]) -> Dict[str, Any]:
+    """A training config (or a training run's provenance ``config.yaml``)
+    flattened to the training stage's params dict: the io/experiment/
+    training sections, then dataset and model.
+
+    Training, evaluation and ``serving --training_dir`` all flatten
+    through this one function, so checkpoint names and split
+    reproduction cannot drift from what was trained."""
+    flat = flatten_sections(
+        (provenance.get("training", {}) or {}).get("params", {}) or {},
+        ("io", "experiment", "training"),
+    )
+    flat.update(provenance.get("dataset", {}) or {})
+    flat.update(provenance.get("model", {}) or {})
+    return flat
+
+
+def namespace_training_params(flat: Dict[str, Any]) -> Namespace:
+    """``dict_to_namespace`` with :data:`PROVENANCE_EXCLUDE_KEYS` kept raw
+    and ``model_name`` defaulting to the class name of the model path."""
+    params = dict_to_namespace(flat, exclude_keys=PROVENANCE_EXCLUDE_KEYS)
+    if getattr(params, "model_name", None) is None and "model" in flat:
+        params.model_name = flat["model"].split(".")[-1]
+    return params

@@ -4,19 +4,20 @@ kwargs, and ``build_synthesis_model``.
 Counterpart of ``decode_tonal_langauge_tpu/models/factory.py`` and of
 ``training/train_synthesizer.build_synthesis_model``. A model is named by
 the serving CLI's short name (``CNN``, ``CNNRNN``, ``ShallowNN``,
-``logistic``) or by a dotted path whose last part is the class name (the
-JAX package's and the reference's paths both resolve; the registry maps
-the latter onto the port's modules).
+``logistic``) or by a dotted path: the JAX package's and the reference's
+paths resolve to the port's classes (the registry maps the latter onto
+the port's modules), and any other path is imported as given.
 """
 
 from __future__ import annotations
 
+import importlib
 import inspect
 from typing import Any, Dict, Optional
 
 from torch import nn
 
-from ..registry import canonical_module_path
+from ..registry import _PKG, canonical_module_path
 from .deep import CNNClassifier, CNNRNNClassifier
 from .simple import LogisticRegressionClassifier, ShallowNNClassifier
 from .synthesis import SynthesisLite, SynthesisModelCNN
@@ -37,15 +38,35 @@ SYNTHESIS_MODELS = {"SynthesisFull": SynthesisModelCNN,
 
 
 def resolve_model_class(name: str) -> type:
-    """Short name or dotted path -> the port's classifier class."""
+    """Short name or dotted path -> a classifier class.
+
+    The port's short names and the reference's and JAX package's paths
+    map onto the port's four classifiers; any other dotted path is
+    imported as given (the registry's escape hatch for a user's own
+    model) and must name a ``torch.nn.Module`` subclass."""
     path = canonical_module_path(CLASSIFIER_SHORT_NAMES.get(name, name))
-    cls_name = path.rsplit(".", 1)[-1]
-    if cls_name not in CLASSIFIERS:
+    module_name, _, cls_name = path.rpartition(".")
+    # the port's own paths, and the JAX package's, name the port's classes
+    if cls_name in CLASSIFIERS and module_name.split(".")[0] in (
+        "", _PKG, "decode_tonal_langauge_tpu"
+    ):
+        return CLASSIFIERS[cls_name]
+    if not module_name:
         raise ValueError(
             f"Unknown classifier '{name}'; the port has "
-            f"{sorted(CLASSIFIERS)} (short names {sorted(CLASSIFIER_SHORT_NAMES)})."
+            f"{sorted(CLASSIFIERS)} (short names {sorted(CLASSIFIER_SHORT_NAMES)}), "
+            "or name a torch.nn.Module subclass by its dotted path."
         )
-    return CLASSIFIERS[cls_name]
+    try:
+        cls = getattr(importlib.import_module(module_name), cls_name)
+    except (ImportError, AttributeError) as e:
+        raise ValueError(f"cannot import classifier '{name}' ({path}): {e}") from e
+    if not (isinstance(cls, type) and issubclass(cls, nn.Module)):
+        raise TypeError(
+            f"classifier '{name}' resolves to {cls!r}, which is not a "
+            "torch.nn.Module subclass"
+        )
+    return cls
 
 
 def _check_dtype(kwargs: Dict[str, Any]) -> None:

@@ -3,9 +3,8 @@
 Counterpart of ``decode_tonal_langauge_tpu/registry.py``: config module
 names (the reference repo's dotted paths, or short names) map onto the
 port's modules, and any other dotted path is imported as given. It holds
-the names of the stages the port has (preprocess, sample collection,
-classifier training) and of the classifier classes; the other stages'
-names come with their slices.
+the JAX registry's names: every pipeline stage, preprocess plugin and
+step, channel-selection method and model class.
 """
 
 from __future__ import annotations
@@ -35,16 +34,27 @@ _ALIASES: Dict[str, str] = {
     **{f"preprocess.{s}": f"{_PKG}.preprocess.signal.{s}" for s in _STEPS},
     **{f"preprocess.signal.{s}": f"{_PKG}.preprocess.signal.{s}" for s in _STEPS},
     "extract_samples": f"{_PKG}.data.extract_samples",
+    "channel_selection_main": f"{_PKG}.channel_selection.main",
     "train_classifier": f"{_PKG}.training.train_classifier",
+    "evaluation_main": f"{_PKG}.evaluation.main",
+    "visualisation_main": f"{_PKG}.visualisation.main",
+    "channel_selection.active": f"{_PKG}.channel_selection.active",
+    "channel_selection.discriminative": f"{_PKG}.channel_selection.discriminative",
     # model classes, as the `model:` config section names them
     "models.simple_classifiers.LogisticRegressionClassifier": f"{_PKG}.models.simple.LogisticRegressionClassifier",
     "models.simple_classifiers.ShallowNNClassifier": f"{_PKG}.models.simple.ShallowNNClassifier",
     "models.deep_classifiers.CNNClassifier": f"{_PKG}.models.deep.CNNClassifier",
     "models.deep_classifiers.CNNRNNClassifier": f"{_PKG}.models.deep.CNNRNNClassifier",
+    "models.synthesis_models.SynthesisModelCNN": f"{_PKG}.models.synthesis.SynthesisModelCNN",
+    "models.synthesis_models.SynthesisLite": f"{_PKG}.models.synthesis.SynthesisLite",
 }
 
 # Short names for new-style configs.
-_SHORT_NAMES: Dict[str, str] = {s: f"{_PKG}.preprocess.signal.{s}" for s in _STEPS}
+_SHORT_NAMES: Dict[str, str] = {
+    **{s: f"{_PKG}.preprocess.signal.{s}" for s in _STEPS},
+    "active": f"{_PKG}.channel_selection.active",
+    "discriminative": f"{_PKG}.channel_selection.discriminative",
+}
 
 
 def canonical_module_path(name: str) -> str:

@@ -21,8 +21,14 @@ from the JAX package's Orbax checkpoints. CLI:
         --synthesis_model_name SynthesisLite --synthesis_model_path syn.pt \
         --output_dir decoded/ [--n_wavs 4] [--device cuda]
 
-or ``--stream_recording rec.npz --stream_window_s 0.5 [--stream_hop_s
-0.1]`` in place of ``--sample_path`` for a sliding-window decode. Writes
+or ``--training_dir <training output> [--seed S] [--subject_id ID]`` in
+place of the four classifier flags (and, for a classifier-only decode,
+of ``--channel_file`` and ``--config_file``): models, kwargs, checkpoints
+and channels come from the run's provenance, as the evaluation stage
+recovers them. ``--stream_recording rec.npz --stream_window_s 0.5
+[--stream_hop_s 0.1]`` in place of ``--sample_path`` decodes sliding
+windows (with ``--training_dir`` the window must equal the run's epoch
+length). Writes
 ``predictions.csv`` (or ``windows.csv`` + ``events.csv``), ``mels.npz``,
 the first N ``decoded_*.wav`` and ``summary.json``. When the epoch npz
 carries ``audio``, the summary adds the decoded mels' MCD and Pearson r
@@ -303,12 +309,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stream_min_windows", type=int, default=3,
                    help="Streaming event rule: an event is a run of at least "
                         "this many windows predicting the same labels.")
-    p.add_argument("--channel_file", type=str, required=True)
-    p.add_argument("--config_file", type=str, required=True)
-    p.add_argument("--tone_model_name", type=str, required=True)
-    p.add_argument("--tone_model_path", type=str, required=True)
-    p.add_argument("--syllable_model_name", type=str, required=True)
-    p.add_argument("--syllable_model_path", type=str, required=True)
+    p.add_argument("--channel_file", type=str, default=None)
+    p.add_argument("--config_file", type=str, default=None)
+    p.add_argument("--training_dir", type=str, default=None,
+                   help="A training-stage output dir (save_checkpoints: true): "
+                        "the classifier models, kwargs (model.per_target "
+                        "included), checkpoint paths and the default "
+                        "channel_file come from its provenance config.yaml, "
+                        "in place of the four --*_model_name/--*_model_path "
+                        "flags.")
+    p.add_argument("--seed", type=int, default=None,
+                   help="With --training_dir: the repeat seed whose "
+                        "checkpoints to serve (in the run's seed stream; "
+                        "default: the first).")
+    p.add_argument("--subject_id", type=str, default=None,
+                   help="With --training_dir: the subject whose checkpoints "
+                        "to load (default: parsed from a sample file named "
+                        "'subject_<id>.npz').")
+    p.add_argument("--tone_model_name", type=str, default=None)
+    p.add_argument("--tone_model_path", type=str, default=None)
+    p.add_argument("--syllable_model_name", type=str, default=None)
+    p.add_argument("--syllable_model_path", type=str, default=None)
     p.add_argument("--synthesis_model_name", type=str, default=None)
     p.add_argument("--synthesis_model_path", type=str, default=None)
     p.add_argument("--tone_model_kwargs", type=str, default=None,
@@ -322,14 +343,188 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Also report single-trial end-to-end decode latency.")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; 'cpu' runs on the CPU).")
+    p.add_argument("--parallel_data", type=int, default=None,
+                   help="Accepted for the JAX CLI's sake; the port decodes "
+                        "on one device.")
+    p.add_argument("--no_compilation_cache", action="store_true",
+                   help="Accepted for the JAX CLI's sake; the port compiles "
+                        "nothing.")
     return p
 
 
+def _configure_from_training_dir(params: argparse.Namespace) -> Dict[str, Any]:
+    """Fill the classifier model and checkpoint flags from a training run.
+
+    Reads the run's provenance ``config.yaml``, flattened as training and
+    evaluation flatten it, and resolves per target the model path and
+    kwargs (``model.per_target`` overrides included) and the
+    ``checkpoint_name``-keyed checkpoint. Returns the dataset-config
+    pieces the provenance gives (label counts), used when no
+    ``--config_file`` is given."""
+    from .config import flatten_training_provenance, load_config, namespace_training_params
+    from .training.classifier_pipeline import checkpoint_name, target_model_params
+    from .utils.seeding import seed_stream
+
+    conflicting = [
+        f"--{a}"
+        for a in ("tone_model_name", "tone_model_path", "tone_model_kwargs",
+                  "syllable_model_name", "syllable_model_path",
+                  "syllable_model_kwargs")
+        if getattr(params, a, None)
+    ]
+    if conflicting:
+        raise ValueError(
+            f"--training_dir recovers the classifier flags from provenance "
+            f"and would silently override {', '.join(conflicting)} — pass "
+            "either --training_dir or the explicit model flags, not both."
+        )
+
+    cfg_path = os.path.join(params.training_dir, "config.yaml")
+    if not os.path.exists(cfg_path):
+        raise FileNotFoundError(
+            f"No config.yaml in {params.training_dir} — --training_dir "
+            "must point at a training-stage output directory."
+        )
+    provenance = load_config(cfg_path) or {}
+    ns = namespace_training_params(flatten_training_provenance(provenance))
+
+    targets = list(getattr(ns, "targets", []) or [])
+    if "tone" not in targets or "syllable" not in targets:
+        raise ValueError(
+            f"--training_dir run trained targets {targets}; serving needs "
+            "checkpoints for both 'tone' and 'syllable'."
+        )
+    if not getattr(ns, "separate_models", False):
+        raise ValueError(
+            "--training_dir points at a joint-model run (separate_models: "
+            "false); serving decodes per-target checkpoints — pass the "
+            "model flags explicitly for joint checkpoints."
+        )
+    if not getattr(ns, "save_checkpoints", False):
+        raise ValueError(
+            "--training_dir run did not save checkpoints "
+            "(training.save_checkpoints: true is required)."
+        )
+
+    subject = params.subject_id
+    if subject is None:
+        stem = os.path.basename(params.sample_path or "")
+        if stem.startswith("subject_") and stem.endswith(".npz"):
+            subject = stem[len("subject_"):-len(".npz")]
+        else:
+            raise ValueError(
+                "--subject_id is required with --training_dir when the "
+                "sample filename is not 'subject_<id>.npz' (streaming "
+                "mode has no sample filename to parse)."
+            )
+
+    # The subject's epoch length from provenance: a stream must use the
+    # same window (weights load into any window length without error).
+    subjects_cfg = (
+        (provenance.get("sample_collection") or {}).get("params") or {}
+    ).get("subjects") or {}
+    entry = subjects_cfg.get(subject)
+    if entry is None:
+        try:
+            entry = subjects_cfg.get(int(subject))
+        except (TypeError, ValueError):
+            entry = None
+    if isinstance(entry, dict) and entry.get("sample_length") is not None:
+        params._provenance_sample_length = float(entry["sample_length"])
+
+    seeds = [int(s) for s in seed_stream(getattr(ns, "seed", 42), getattr(ns, "repeat", 1))]
+    seed = int(params.seed) if params.seed is not None else seeds[0]
+    if seed not in seeds:
+        raise ValueError(
+            f"--seed {seed} is not in this run's seed stream {seeds}."
+        )
+
+    for target in ("tone", "syllable"):
+        tp = target_model_params(ns, target)
+        tp.subject_id = subject
+        ckpt = os.path.join(params.training_dir, "model_checkpoints",
+                            checkpoint_name(tp, target, seed))
+        if not os.path.exists(ckpt):
+            raise FileNotFoundError(f"Checkpoint {ckpt} not found.")
+        setattr(params, f"{target}_model_name", tp.model)
+        setattr(params, f"{target}_model_path", ckpt)
+        setattr(params, f"{target}_model_kwargs",
+                getattr(tp, "model_kwargs", None) or None)
+
+    if params.channel_file is None:
+        channel_dir = getattr(ns, "channel_selection_dir", None)
+        if channel_dir:
+            params.channel_file = os.path.join(channel_dir, f"subject_{subject}.json")
+
+    # A classifier-only decode: label counts and a placeholder dynamics
+    # table. A synthesizer decode needs the synthesizer's --config_file
+    # (its contours and mel_kwargs are not in this provenance).
+    n_tones = len(getattr(ns, "tone_labels", []) or [])
+    n_syllables = len(getattr(ns, "syllable_labels", []) or [])
+    if n_tones == 0 or n_syllables == 0:
+        raise ValueError(
+            "The training provenance records no tone_labels/"
+            "syllable_labels (dataset section) — pass --config_file with "
+            "n_tones/n_syllables to decode without them."
+        )
+    return {
+        "n_tones": n_tones,
+        "n_syllables": n_syllables,
+        "tone_dynamic_mapping": {str(i): [float(i)] for i in range(n_tones)},
+        "mel_kwargs": {},
+    }
+
+
 def run(params: argparse.Namespace) -> Dict[str, Any]:
+    given = [flag for flag, on in (
+        ("--parallel_data", getattr(params, "parallel_data", None)),
+        ("--no_compilation_cache", getattr(params, "no_compilation_cache", False)),
+    ) if on]
+    if given:
+        print(f"{', '.join(given)}: accepted, but the port decodes on one device "
+              "and compiles nothing; ignoring")
+
+    provenance_dataset_config = None
+    if getattr(params, "training_dir", None):
+        provenance_dataset_config = _configure_from_training_dir(params)
+    else:
+        missing = [
+            f"--{a}"
+            for a in ("tone_model_name", "tone_model_path",
+                      "syllable_model_name", "syllable_model_path",
+                      "channel_file")
+            if not getattr(params, a, None)
+        ]
+        if missing:
+            raise ValueError(
+                f"{', '.join(missing)} required (or pass --training_dir "
+                "to recover them from a training run's provenance)."
+            )
+
+    if params.channel_file is None:
+        raise ValueError(
+            "--channel_file required: the training provenance recorded no "
+            "channel_selection_dir to derive it from."
+        )
     with open(params.channel_file) as f:
         channel_selections = json.load(f)
-    with open(params.config_file) as f:
-        dataset_config = json.load(f)
+    if params.config_file:
+        with open(params.config_file) as f:
+            dataset_config = json.load(f)
+    elif provenance_dataset_config is not None:
+        if params.synthesis_model_name or params.synthesis_model_path:
+            raise ValueError(
+                "a synthesizer decode needs --config_file (the "
+                "synthesizer's JSON: tone_dynamic_mapping contours + "
+                "mel_kwargs) — the classifier provenance only derives "
+                "label counts."
+            )
+        dataset_config = provenance_dataset_config
+    else:
+        raise ValueError(
+            "--config_file required (or pass --training_dir to derive "
+            "label counts from the run's provenance)."
+        )
 
     streaming = bool(params.stream_recording)
     if streaming:
@@ -344,6 +539,15 @@ def run(params: argparse.Namespace) -> Dict[str, Any]:
                 "(it must equal the training epochs' sample_length)."
             )
         recording, stream_sf = _load_recording(params.stream_recording)
+        expect = getattr(params, "_provenance_sample_length", None)
+        if expect is not None and abs(params.stream_window_s - expect) > 1e-9:
+            raise ValueError(
+                f"--stream_window_s {params.stream_window_s} does not "
+                f"match the training run's sample_length {expect} "
+                "(provenance) — the models were trained on that epoch "
+                "length and would decode a different window silently "
+                "wrong."
+            )
         window = int(round(params.stream_window_s * stream_sf))
         hop = int(round(params.stream_hop_s * stream_sf))
         dataset: Dict[str, Any] = {}

@@ -2,7 +2,9 @@
 
 Counterpart of ``decode_tonal_langauge_tpu/training/train_classifier.py``.
 ``run(config, device=None) -> log_dir`` flattens the io/experiment/training
-sections plus dataset/model/evaluation into one params namespace,
+sections plus dataset/model (``config.flatten_training_provenance``, the
+flattening evaluation and serving repeat on the run's provenance) and
+the evaluation section into one params namespace,
 discovers ``subject_*.npz`` sample files, derives the hashed experiment
 log dir (the JAX stage's name for the same config) with merged provenance
 ``config.yaml``, draws the per-repeat seeds from the base seed, and runs
@@ -19,10 +21,10 @@ import os
 from argparse import Namespace
 
 from ..config import (
-    dict_to_namespace,
-    flatten_sections,
+    flatten_training_provenance,
     generate_hash_name_from_config,
     load_config,
+    namespace_training_params,
     save_config,
 )
 from ..runtime.device import DeviceLike, resolve_device
@@ -43,23 +45,16 @@ def run(config: dict, device: DeviceLike = None) -> str:
     print("Running train_classifier ...")
 
     training_section = config.get("training", {})
-    flat_train = flatten_sections(training_section.get("params", {}),
-                                  ("io", "experiment", "training"))
     model_cfg = config.get("model", {})
     dataset_cfg = config.get("dataset", {})
     evaluation_cfg = config.get("evaluation", {})
 
-    combined_cfg = {**flat_train, **dataset_cfg, **model_cfg, **evaluation_cfg}
+    combined_cfg = {**flatten_training_provenance(config), **evaluation_cfg}
     # The evaluation section documents `metric_aggregates` as the
     # results.csv aggregate columns; the results writer reads `aggregates`.
     if "metric_aggregates" in combined_cfg and "aggregates" not in combined_cfg:
         combined_cfg["aggregates"] = combined_cfg["metric_aggregates"]
-    params = dict_to_namespace(
-        combined_cfg,
-        # per_target: raw dict of per-target model overrides (nested
-        # model_kwargs must stay plain for the factory)
-        exclude_keys=["class_labels", "model_kwargs", "per_target"],
-    )
+    params = namespace_training_params(combined_cfg)
     params.device = device
     if config.get("parallel"):
         print("parallel: set, but the port's training stage runs on one device")
@@ -79,9 +74,6 @@ def run(config: dict, device: DeviceLike = None) -> str:
             f"No subject files found in {sample_dir}. "
             "Ensure files are named like 'subject_<id>.npz'."
         )
-
-    if getattr(params, "model_name", None) is None and "model" in model_cfg:
-        params.model_name = model_cfg["model"].split(".")[-1]
 
     base_log_dir = getattr(params, "log_dir", "logs")
     hash_cfg = {k: v for k, v in combined_cfg.items() if k not in _UNHASHED}

@@ -2,7 +2,9 @@
 package (nor flax, optax, sklearn, pandas, matplotlib or tensorboardX,
 which the card's machine lacks), and its entry points default to CUDA
 instead of falling back to the CPU: serving, preprocessing, classifier
-and synthesizer training, and sample extraction."""
+and synthesizer training, sample extraction, channel selection,
+evaluation and the pipeline runner. Without matplotlib the visualisation
+stage makes no figures and returns None."""
 
 import os
 import subprocess
@@ -40,7 +42,12 @@ torch.cuda.is_available = lambda: False  # a machine without a card
 
 from argparse import Namespace
 
+from decode_tonal_langauge_tpu_torch import pipeline
+from decode_tonal_langauge_tpu_torch.channel_selection import active, discriminative
+from decode_tonal_langauge_tpu_torch.channel_selection import main as cs_main
 from decode_tonal_langauge_tpu_torch.data import extract_samples
+from decode_tonal_langauge_tpu_torch.evaluation import main as evaluation_main
+from decode_tonal_langauge_tpu_torch.visualisation import main as visualisation_main
 from decode_tonal_langauge_tpu_torch.models.factory import (
     build_synthesis_model,
     get_classifier_by_name,
@@ -75,6 +82,11 @@ calls = [
                                     "--syllable_model_name", "logistic",
                                     "--tone_model_name", "logistic"]),
     lambda: extract_samples.run({"sample_collection": {"params": {}}}),
+    lambda: cs_main.run({"channel_selection": {"params": {}}}),
+    lambda: active.run({}, {}),
+    lambda: discriminative.run({}, {}),
+    lambda: evaluation_main.run({"evaluation": {"params": {}}}),
+    lambda: pipeline.run_pipeline({}),
 ]
 for call in calls:
     try:
@@ -90,6 +102,11 @@ assert len(trainer.train(synth_data, 1, batch_size=4, verbose=False)) == 1
 out, _ = preprocess_signal(np.ones((2, 8), np.float32), steps, Namespace(signal_freq=8.0),
                            device="cpu")
 assert out.device.type == "cpu"
+import contextlib, io
+note = io.StringIO()
+with contextlib.redirect_stdout(note):
+    assert visualisation_main.run({"visualisation": {"params": {}}}) is None
+assert note.getvalue().startswith("Visualisation stage made no figures"), note.getvalue()
 print("isolated", len(names))
 """
 
