@@ -87,7 +87,24 @@ present, or when the port's sources are not beside it.
    trainer's), no figures without matplotlib, K1 0 launches; prints the
    stage timing, the wall, peak memory, and each ANOVA's wall, device time
    and operations (``torch.profiler``).
-8. Prints each phase's wall time, the ``kernels`` JSON line, then the
+8. bf16 phase (``configs/fast_bf16.yaml``'s compute dtype): one train step
+   of the full-width CNN and CNN-RNN at batch 32 and of SynthesisFull at
+   batch 8 and 32 in float32, in bf16 and in bf16 with cuBLAS's bf16
+   reductions allowed, from the same seeded weights (median of 10 after 3
+   warm-ups, busy share, operations, top device ops, peak memory, and a
+   ``bf16 step table:`` JSON line); bf16 forwards on the card and the CPU
+   (probabilities within 2e-3, ids equal where the top-2 margin exceeds it,
+   outputs off the bf16 grid, mels within four bf16 roundings); two bf16
+   SynthesisFull gradients equal under deterministic cuDNN;
+   ``configs/fast_bf16.yaml`` through ``pipeline.run_pipeline`` on the
+   pipeline phase's subject (epochs cut from 60 to 3; 4 seeds, batch 32,
+   lstm_dim 800 kept; rows equal, the bf16 models in the rows and the
+   provenance, ``serving --training_dir`` ids equal to the trainer's); and
+   ``train_synthesizer --dtype bfloat16 --moment_dtype bfloat16`` (1 seed x
+   3 epochs, MCD below the zero predictor's) served with
+   ``--synthesis_dtype bfloat16`` (test mels within four bf16 roundings of
+   ``evaluate``'s); K1 0 launches.
+9. Prints each phase's wall time, the ``kernels`` JSON line, then the
    final ``ok`` JSON line.
 """
 
@@ -850,37 +867,50 @@ def step_parity(card: str, device: str) -> dict:
     return out
 
 
-def train_step_times(card: str, trainers: dict) -> None:
-    """Median train-step wall time (host clock around synchronize, after
-    3 warm-ups) and trials/s per model at its batch; the device work of
-    one step from torch.profiler: busy share, launches, top operations."""
+def step_profile(step) -> dict:
+    """One train step's median wall time (host clock around synchronize,
+    10 steps after 3 warm-ups), its peak device memory over one step, and
+    its device work from torch.profiler: busy ms, operations, top rows."""
     import torch
 
     from decode_tonal_langauge_tpu_torch._timing import device_events
 
-    for name, (trainer, batch) in trainers.items():
-        step = lambda: trainer.train_step(*batch)  # noqa: E731
-        for _ in range(3):
-            step()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step()
         torch.cuda.synchronize()
-        walls = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        wall_ms = float(np.median(walls)) * 1e3
-        rows = device_events(step, runs=3)
-        check(rows, f"torch.profiler saw no device time in a {name} train step")
-        busy_ms = sum(r[0] for r in rows)
-        launches = sum(r[1] for r in rows)
-        n = batch[0].shape[0]
-        print(f"{name} train step, batch {n}: {wall_ms:.2f} ms (median of 10), "
-              f"{n / (wall_ms / 1e3):.1f} trials/s; device work {busy_ms:.3f} ms "
-              f"({100 * busy_ms / wall_ms:.1f}% busy), {launches:.0f} device operations "
-              f"a step [{card}]")
-        for ms, n, op in rows[:8]:
-            print(f"    {ms:8.4f} ms  x{n:<6g} {op[:100]}")
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    rows = device_events(step, runs=3)
+    return {"wall_ms": float(np.median(walls)) * 1e3, "peak_mib": peak, "rows": rows,
+            "busy_ms": sum(r[0] for r in rows), "ops": sum(r[1] for r in rows)}
+
+
+def print_step(card: str, name: str, n: int, prof: dict, top: int = 8) -> None:
+    wall = prof["wall_ms"]
+    print(f"{name} train step, batch {n}: {wall:.2f} ms (median of 10), "
+          f"{n / (wall / 1e3):.1f} trials/s; device work {prof['busy_ms']:.3f} ms "
+          f"({100 * prof['busy_ms'] / wall:.1f}% busy), {prof['ops']:.0f} device operations "
+          f"a step, peak {prof['peak_mib']:.0f} MiB [{card}]")
+    for ms, count, op in prof["rows"][:top]:
+        print(f"    {ms:8.4f} ms  x{count:<6g} {op[:100]}")
+
+
+def train_step_times(card: str, trainers: dict) -> None:
+    """Median train-step wall time and trials/s per model at its batch;
+    the device work of one step from torch.profiler: busy share,
+    launches, top operations (``step_profile``)."""
+    for name, (trainer, batch) in trainers.items():
+        prof = step_profile(lambda: trainer.train_step(*batch))  # noqa: B023
+        check(prof["rows"], f"torch.profiler saw no device time in a {name} train step")
+        print_step(card, name, batch[0].shape[0], prof)
 
 
 def training_phase(card: str, device: str = "cuda") -> None:
@@ -1211,12 +1241,23 @@ def synthesis_serving(card: str, device: str, world: dict, stage: dict, sz: dict
           f"{worst:.3g} (both seeds, batches of {SYN_BATCH}) [{card}]")
 
 
+def synthesis_batch(rng, n: int, sz: dict):
+    """A SynthesisTrainer batch: ECoG, label dynamics, mel targets and
+    weights (the last row padding)."""
+    import torch
+
+    w = np.ones(n, np.float32)
+    w[-1] = 0.0
+    return tuple(torch.from_numpy(a) for a in (
+        rng.standard_normal((n, sz["non"], SYN_LENGTH)).astype(np.float32),
+        rng.integers(0, 2, (n, 2, sz["n_dyn"])).astype(np.float32),
+        (rng.standard_normal((n, sz["n_mels"] * 20)) * 10 - 40).astype(np.float32), w))
+
+
 def synthesis_steps(card: str, device: str, world: dict, sz: dict) -> None:
     """The train step timed at batch 8 and 32 (card only), then two NAdam
     steps of SynthesisFull (dropout 0) card vs CPU vs float64 with the
     TF32 control."""
-    import torch
-
     from decode_tonal_langauge_tpu_torch.models.base import init_params
     from decode_tonal_langauge_tpu_torch.models.factory import get_classifier_by_name
     from decode_tonal_langauge_tpu_torch.models.synthesis import SynthesisModelCNN
@@ -1224,14 +1265,7 @@ def synthesis_steps(card: str, device: str, world: dict, sz: dict) -> None:
 
     rng = np.random.default_rng(11)
     mel_dim = sz["n_mels"] * 20
-
-    def batch(n):
-        w = np.ones(n, np.float32)
-        w[-1] = 0.0  # a padding row
-        return tuple(torch.from_numpy(a) for a in (
-            rng.standard_normal((n, sz["non"], SYN_LENGTH)).astype(np.float32),
-            rng.integers(0, 2, (n, 2, sz["n_dyn"])).astype(np.float32),
-            (rng.standard_normal((n, mel_dim)) * 10 - 40).astype(np.float32), w))
+    batch = lambda n: synthesis_batch(rng, n, sz)  # noqa: E731
 
     def l1(model, b):
         out = model(b[0], b[1])
@@ -1448,21 +1482,30 @@ PIPE_SF, PIPE_EPOCH_S, PIPE_BATCH = 1000.0, 0.5, 32
 P_RTOL, P_ATOL, P_SMALL, P_FLOOR = 1e-4, 1e-3, 1e-3, 1e-30
 
 
-def pipeline_config(root: str, sz: dict) -> dict:
-    """``configs/example_config.yaml`` with its paths under ``root`` and
-    the phase's sizes: 0.5 s epochs, channel figures off, the paper's
-    pairing through ``model.per_target``, 2 seeds x 3 epochs at batch 32,
-    checkpoints, and the evaluation stage on."""
+def shipped_config(name: str, root: str) -> dict:
+    """``configs/<name>`` with its paths under ``root``, 0.5 s epochs and
+    no confusion figure (no matplotlib on the card's machine)."""
     from decode_tonal_langauge_tpu_torch.config import load_config
 
     here = os.path.dirname(os.path.abspath(__file__))
-    cfg = load_config(os.path.join(here, "configs", "example_config.yaml"))
+    cfg = load_config(os.path.join(here, "configs", name))
     pre = cfg["preprocess"]["params"]
     pre["io"]["params"].update(root_dir=f"{root}/raw", output_dir=f"{root}/processed")
     collect = cfg["sample_collection"]["params"]
     collect["io"].update(output_dir=f"{root}/samples", textgrid_root=f"{root}/raw")
     collect["subjects"][1]["sample_length"] = PIPE_EPOCH_S
     cfg["channel_selection"]["params"]["io"]["output_dir"] = f"{root}/selection"
+    cfg["training"]["params"]["io"]["log_dir"] = f"{root}/logs"
+    cfg["evaluation"]["metrics"] = ["accuracy", "f1_score"]
+    return cfg
+
+
+def pipeline_config(root: str, sz: dict) -> dict:
+    """``configs/example_config.yaml`` (``shipped_config``) with the
+    phase's sizes: the paper's pairing through ``model.per_target``, 2
+    seeds x 3 epochs at batch 32, checkpoints, and the evaluation stage
+    on."""
+    cfg = shipped_config("example_config.yaml", root)
     cfg["model"] = {
         "model": "models.deep_classifiers.CNNClassifier", "model_name": "CNN",
         "model_kwargs": {},
@@ -1470,12 +1513,10 @@ def pipeline_config(root: str, sz: dict) -> dict:
                                 "model_kwargs": {"lstm_dim": sz["lstm_dim"]}}},
     }
     train = cfg["training"]["params"]
-    train["io"]["log_dir"] = f"{root}/logs"
     train["experiment"]["repeat"] = 2
     train["training"].update(batch_size=PIPE_BATCH, epochs=3, patience=60,
                              save_checkpoints=True)
     cfg["evaluation"]["module"] = "evaluation_main"
-    cfg["evaluation"]["metrics"] = ["accuracy", "f1_score"]  # no confusion figure
     return cfg
 
 
@@ -1579,32 +1620,52 @@ def pipeline_serving(card: str, device: str, outputs: dict, fits: dict, seeds) -
           f"[{card}]")
 
 
+def run_recorded_pipeline(config: dict, device: str):
+    """``pipeline.run_pipeline`` on ``device`` (the card by default),
+    recording each target's test predictions by seed from the trainer.
+    Returns (outputs, fits, wall s, peak MiB, K1 launches)."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch import pipeline
+    from decode_tonal_langauge_tpu_torch.ops import cuda_iir
+    from decode_tonal_langauge_tpu_torch.training import classifier_pipeline
+
+    on_card = device == "cuda"
+    fits, fit_all = {}, classifier_pipeline._fit_eval_all_seeds
+
+    def recording(*args, target_str=None, **kwargs):
+        results = fit_all(*args, target_str=target_str, **kwargs)
+        fits[target_str] = {r.seed: r.test_preds for r in results}
+        return results
+
+    classifier_pipeline._fit_eval_all_seeds = recording
+    launches = cuda_iir.LAUNCHES
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        outputs = pipeline.run_pipeline(config, device=None if on_card else device)
+        wall = time.perf_counter() - t0
+    finally:
+        classifier_pipeline._fit_eval_all_seeds = fit_all
+    peak = torch.cuda.max_memory_allocated() / 2**20 if on_card else float("nan")
+    return outputs, fits, wall, peak, cuda_iir.LAUNCHES - launches
+
+
 def pipeline_phase(card: str, device: str = "cuda", sizes: dict = PIPE_FULL) -> None:
     """The YAML pipeline through ``pipeline.run_pipeline`` on the card:
     preprocess, sample collection, channel selection, training,
     evaluation and visualisation of one synthetic subject; then the
     channel selection repeated on the CPU, evaluation held to training,
     ``serving --training_dir``, the ANOVA's times, and K1's launches."""
-    import torch
-
-    from decode_tonal_langauge_tpu_torch import pipeline
     from decode_tonal_langauge_tpu_torch.channel_selection import active, discriminative
     from decode_tonal_langauge_tpu_torch.channel_selection import main as cs_main
     from decode_tonal_langauge_tpu_torch.data.synthetic import SyntheticSpec, write_subject
-    from decode_tonal_langauge_tpu_torch.ops import cuda_iir
-    from decode_tonal_langauge_tpu_torch.training import classifier_pipeline
     from decode_tonal_langauge_tpu_torch.utils.seeding import seed_stream
 
     on_card = device == "cuda"
     spec = SyntheticSpec(n_channels=sizes["channels"], ecog_sf=PIPE_SF, n_blocks=2,
                          trials_per_block=sizes["trials_per_block"])
-    fits, fit_all = {}, classifier_pipeline._fit_eval_all_seeds
-
-    def recording(*args, target_str=None, **kwargs):  # the trainer's test predictions
-        results = fit_all(*args, target_str=target_str, **kwargs)
-        fits[target_str] = {r.seed: r.test_preds for r in results}
-        return results
-
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         write_subject(f"{root}/raw", 1, spec)
@@ -1612,18 +1673,7 @@ def pipeline_phase(card: str, device: str = "cuda", sizes: dict = PIPE_FULL) -> 
               f"{PIPE_SF:.0f} Hz, 2 x {spec.trials_per_block} trials written in "
               f"{time.perf_counter() - t0:.1f} s")
         config = pipeline_config(root, sizes)
-        classifier_pipeline._fit_eval_all_seeds = recording
-        cuda_iir.LAUNCHES = 0
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-        try:
-            t0 = time.perf_counter()
-            outputs = pipeline.run_pipeline(config, device=None if on_card else device)
-            wall = time.perf_counter() - t0
-        finally:
-            classifier_pipeline._fit_eval_all_seeds = fit_all
-        k1 = cuda_iir.LAUNCHES
-        peak = torch.cuda.max_memory_allocated() / 2**20 if on_card else float("nan")
+        outputs, fits, wall, peak, k1 = run_recorded_pipeline(config, device)
         print(f"pipeline: {wall:.2f} s wall for all stages, peak {peak:.0f} MiB "
               f"allocated, K1 launches {k1} [{card}]")
         check(k1 == 0, "K1 launched during the pipeline phase")
@@ -1704,6 +1754,314 @@ def pipeline_phase(card: str, device: str = "cuda", sizes: dict = PIPE_FULL) -> 
             anova_times(card, sample, device)
 
 
+# The bf16 phase: the compute dtype of configs/fast_bf16.yaml (model_kwargs:
+# {dtype: bfloat16}), train_synthesizer --dtype and serving --synthesis_dtype on
+# the card. Tolerances are tests/test_torch_bf16.py's: class probabilities (an f32
+# head over bf16 features) within 2e-3, mels within rtol 2^-6 and an atol of 2^-6
+# of their largest magnitude (four bf16 roundings).
+BF16_PROB_ATOL = 2e-3
+BF16_EPOCHS, BF16_SEEDS = 3, 4
+
+
+def bf16_close(got: np.ndarray, want: np.ndarray) -> bool:
+    scale = float(np.abs(want).max())
+    return bool(np.allclose(got, want, rtol=2**-6, atol=2**-6 * scale))
+
+
+def bf16_classifier(name: str, dtype: str, seed: int, sizes=None):
+    """The full-width CNN (8 syllables) or CNN-RNN (4 tones, lstm_dim 800)
+    on TRAIN_CHANNELS x TRAIN_LENGTH in ``dtype``, with seeded weights (the
+    same for every dtype: the parameters are float32 either way)."""
+    from decode_tonal_langauge_tpu_torch.models.base import init_params
+    from decode_tonal_langauge_tpu_torch.models.factory import get_classifier_by_name
+
+    n_classes, kwargs = {"CNN": (N_SYLLS, {}), "CNNRNN": (N_TONES, {"lstm_dim": 800})}[name]
+    return init_params(get_classifier_by_name(
+        name, n_classes, TRAIN_CHANNELS, TRAIN_LENGTH, {**kwargs, "dtype": dtype}), seed=seed)
+
+
+def bf16_step_times(card: str, device: str, sz: dict) -> None:
+    """One train step of the full-width CNN and CNN-RNN at batch 32 and of
+    SynthesisFull at batch 8 and 32, in float32 and in bf16 from the same
+    seeded weights, and in bf16 once more with cuBLAS allowed to reduce
+    half-precision GEMMs in bf16 (``exact_f32`` without its
+    ``f32_accumulation``): wall, device work, operations, top device ops
+    and peak memory of each (``step_profile``)."""
+    from unittest import mock
+
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.models.synthesis import SynthesisModelCNN
+    from decode_tonal_langauge_tpu_torch.runtime import device as device_mod
+    from decode_tonal_langauge_tpu_torch.training.synthesis_trainer import SynthesisTrainer
+    from decode_tonal_langauge_tpu_torch.training.trainer import ClassifierTrainer
+
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH, TRAIN_CHANNELS, TRAIN_LENGTH)).astype(np.float32)).to(device)
+    cases = []
+    for name in ("CNN", "CNNRNN"):
+        n_classes = N_SYLLS if name == "CNN" else N_TONES
+        y = torch.from_numpy(rng.integers(0, n_classes, TRAIN_BATCH)).to(device)
+
+        def classifier(dtype, name=name, n_classes=n_classes):
+            trainer = ClassifierTrainer(bf16_classifier(name, dtype, 3), n_classes,
+                                        learning_rate=TRAIN_LR, weight_decay=0.01,
+                                        batch_size=TRAIN_BATCH, seed=3, device=device)
+            trainer.init()
+            return trainer
+        cases.append((name, TRAIN_BATCH, classifier,
+                      (x, y, torch.ones(TRAIN_BATCH, device=device))))
+    mel_dim = sz["n_mels"] * 20
+    frozen = [bf16_classifier(n, "float32", 0) for n in ("CNNRNN", "CNN")]
+    for n in (SYN_BATCH, 32):
+        def synthesizer(dtype):
+            trainer = SynthesisTrainer(
+                SynthesisModelCNN(mel_dim, sz["non"], SYN_LENGTH, dtype=dtype), *frozen,
+                {str(k): [0.5] * sz["n_dyn"] for k in range(N_TONES)},
+                learning_rate=SYN_LR, schedule_decay=SYN_DECAY, seed=4, verbose=False,
+                device=device)
+            trainer.init()
+            return trainer
+        cases.append(("SynthesisFull", n, synthesizer,
+                      tuple(t.to(device) for t in synthesis_batch(rng, n, sz))))
+
+    table = []
+    for name, n, make, batch in cases:
+        walls = {}
+        for variant in ("float32", "bfloat16", "bfloat16, bf16 reductions"):
+            if variant != "bfloat16, bf16 reductions":  # that one times the bf16 trainer on
+                trainer = make(variant)
+                torch.cuda.empty_cache()
+            step = lambda: trainer.train_step(*batch)  # noqa: E731
+            if variant.endswith("reductions"):
+                with mock.patch.object(device_mod, "f32_accumulation", contextlib.nullcontext):
+                    prof = step_profile(step)
+            else:
+                prof = step_profile(step)
+            check(prof["rows"], f"torch.profiler saw no device time in a {name} {variant} step")
+            print_step(card, f"{name} {variant}", n, prof, top=10)
+            walls[variant] = prof["wall_ms"]
+            table.append({"model": name, "batch": n, "dtype": variant,
+                          **{k: round(v, 3) for k, v in prof.items() if k != "rows"}})
+        del trainer
+        print(f"{name} batch {n}: bf16 step {walls['bfloat16']:.2f} ms against float32 "
+              f"{walls['float32']:.2f} ms ({walls['float32'] / walls['bfloat16']:.2f}x); "
+              f"with bf16 reductions allowed {walls['bfloat16, bf16 reductions']:.2f} ms "
+              f"[{card}]")
+    print("bf16 step table: " + json.dumps(table))
+
+
+def bf16_card_vs_cpu(card: str, device: str, sz: dict) -> None:
+    """A bf16 forward of the full-width CNN and CNN-RNN (batch 32) and of
+    SynthesisFull (batch 8) on the card and on the CPU from the same
+    weights: probabilities within BF16_PROB_ATOL, ids equal where the
+    CPU's top-2 margin exceeds it, outputs not all on the bf16 grid (the
+    head computes in f32), mels within ``bf16_close``. Then two gradients
+    of the bf16 SynthesisFull under the synthesizer step's deterministic
+    cuDNN must be equal bit for bit."""
+    import copy
+
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.models.base import init_params
+    from decode_tonal_langauge_tpu_torch.models.synthesis import SynthesisModelCNN
+    from decode_tonal_langauge_tpu_torch.runtime.device import exact_f32
+
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal(
+        (TRAIN_BATCH, TRAIN_CHANNELS, TRAIN_LENGTH)).astype(np.float32))
+
+    def both(model, *inputs):
+        outs = []
+        for dev in (device, "cpu"):
+            m = copy.deepcopy(model).to(dev).eval()
+            with torch.no_grad(), exact_f32():
+                out = m(*(t.to(dev) for t in inputs))
+            check(out.dtype == torch.float32, f"{type(model).__name__} output {out.dtype}")
+            outs.append(out.cpu())
+        return outs
+
+    for name in ("CNN", "CNNRNN"):
+        card_p, cpu_p = both(bf16_classifier(name, "bfloat16", 5), x)
+        diff = float((card_p - cpu_p).abs().max())
+        top2 = cpu_p.topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > BF16_PROB_ATOL
+        same = bool((card_p.argmax(1) == cpu_p.argmax(1))[clear].all())
+        on_grid = bool(torch.equal(card_p, card_p.bfloat16().float()))
+        check(diff <= BF16_PROB_ATOL and same and not on_grid,
+              f"{name} bf16 card vs cpu: probabilities {diff:.3g} apart (limit "
+              f"{BF16_PROB_ATOL}), ids equal where clear {same}, all on the bf16 grid {on_grid}")
+        print(f"{name} bf16 forward, batch {TRAIN_BATCH}: card vs CPU probabilities max abs "
+              f"diff {diff:.3g}, ids equal on the {int(clear.sum())} trials with a top-2 "
+              f"margin over {BF16_PROB_ATOL}, outputs off the bf16 grid (f32 head) [{card}]")
+
+    mel_dim = sz["n_mels"] * 20
+    synth = init_params(SynthesisModelCNN(mel_dim, sz["non"], SYN_LENGTH, dropout=0.0,
+                                          dtype="bfloat16"), seed=6)
+    batch = synthesis_batch(rng, SYN_BATCH, sz)
+    card_m, cpu_m = both(synth, *batch[:2])
+    diff = float((card_m - cpu_m).abs().max())
+    check(bf16_close(card_m.numpy(), cpu_m.numpy()),
+          f"SynthesisFull bf16 card vs cpu: mels {diff:.3g} apart")
+    print(f"SynthesisFull bf16 forward, batch {SYN_BATCH}: card vs CPU mels max abs diff "
+          f"{diff:.3g} (largest |mel| {float(cpu_m.abs().max()):.3g}) [{card}]")
+
+    model = synth.to(device).train()
+    inputs = tuple(t.to(device) for t in batch)
+    grads = []
+    for _ in range(2):
+        with exact_f32(deterministic=True):
+            out = model(*inputs[:2])
+            loss = ((out - inputs[2]).abs().mean(dim=1) * inputs[3]).sum()
+            grads.append(torch.autograd.grad(loss, list(model.parameters())))
+    equal = all(torch.equal(a, b) for a, b in zip(*grads))
+    check(equal, "SynthesisFull bf16: two gradients under deterministic cuDNN differ")
+    print("SynthesisFull bf16 under deterministic cuDNN (the synthesizer step's): two "
+          "gradients of one batch equal bit for bit")
+
+
+def bf16_pipeline_config(root: str, sz: dict) -> dict:
+    """``configs/fast_bf16.yaml`` rewritten as the example is
+    (``shipped_config``); its model pairing (CNN syllable, CNN-RNN tone,
+    both bf16), ``repeat: 4``, batch 32, bf16 moments, checkpoints and
+    evaluation kept; epochs cut from 60 to BF16_EPOCHS; lstm_dim written
+    out (800, the default)."""
+    cfg = shipped_config("fast_bf16.yaml", root)
+    cfg["model"]["per_target"]["tone"]["model_kwargs"]["lstm_dim"] = sz["lstm_dim"]
+    cfg["training"]["params"]["training"]["epochs"] = BF16_EPOCHS
+    return cfg
+
+
+def bf16_pipeline(card: str, device: str, sz: dict) -> None:
+    """``configs/fast_bf16.yaml`` through ``pipeline.run_pipeline`` on the
+    pipeline phase's synthetic subject: every stage, evaluation rows equal
+    to training's for all BF16_SEEDS seeds, the bf16 models named in the
+    rows and in the provenance, ``serving --training_dir`` ids equal to
+    the trainer's test predictions."""
+    from decode_tonal_langauge_tpu_torch.config import load_config
+    from decode_tonal_langauge_tpu_torch.data.synthetic import SyntheticSpec, write_subject
+    from decode_tonal_langauge_tpu_torch.utils.seeding import seed_stream
+
+    spec = SyntheticSpec(n_channels=sz["channels"], ecog_sf=PIPE_SF, n_blocks=2,
+                         trials_per_block=sz["trials_per_block"])
+    with tempfile.TemporaryDirectory() as root:
+        write_subject(f"{root}/raw", 1, spec)
+        config = bf16_pipeline_config(root, sz)
+        outputs, fits, wall, peak, k1 = run_recorded_pipeline(config, device)
+        print(f"fast_bf16 pipeline: {wall:.2f} s wall for all stages, peak {peak:.0f} MiB "
+              f"allocated, K1 launches {k1} [{card}]")
+        check(k1 == 0, "K1 launched during the fast_bf16 pipeline")
+        train_rows = read_csv(os.path.join(outputs["training"], "results.csv"))
+        eval_rows = read_csv(os.path.join(outputs["evaluation"], "results.csv"))
+        check({r["target"]: r["model_name"] for r in train_rows}
+              == {"syllable, tone": "cnn_bf16", "syllable": "cnn_bf16", "tone": "cnnrnn_bf16"},
+              f"results.csv targets and models {[(r['target'], r['model_name']) for r in train_rows]}")
+        check(all(len(json.loads(r["accuracy_all"])) == BF16_SEEDS for r in train_rows),
+              f"accuracy_all {[r['accuracy_all'] for r in train_rows]}")
+        check(eval_rows == train_rows, "fast_bf16: evaluation rows differ from the training rows")
+        provenance = load_config(os.path.join(outputs["training"], "config.yaml"))
+        check(provenance["model"]["model_kwargs"] == {"dtype": "bfloat16"}
+              and provenance["model"]["per_target"]["tone"]["model_kwargs"]["dtype"] == "bfloat16",
+              f"provenance model section {provenance['model']}")
+        print("fast_bf16 evaluation: rows equal to training's for all "
+              f"{BF16_SEEDS} seeds; accuracy_all " + ", ".join(
+                  f"{r['target']} {r['accuracy_all']}" for r in eval_rows))
+        pipeline_serving(card, device, outputs, fits,
+                         [int(s) for s in seed_stream(42, BF16_SEEDS)])
+
+
+def bf16_synthesizer(card: str, device: str, sz: dict) -> None:
+    """``train_synthesizer --dtype bfloat16 --moment_dtype bfloat16`` on
+    the synthesizer phase's world, 1 seed x 3 epochs: test MCD below the
+    zero predictor's; then ``serving --synthesis_dtype bfloat16`` on its
+    checkpoint, whose test mels, decoded in the trainer's batches, lie
+    within ``bf16_close`` of ``evaluate``'s."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch import serving
+    from decode_tonal_langauge_tpu_torch.data.splits import split_indices
+    from decode_tonal_langauge_tpu_torch.training import train_synthesizer as stage
+    from decode_tonal_langauge_tpu_torch.training.synthesis_trainer import compute_mcd
+
+    with tempfile.TemporaryDirectory() as root:
+        world = write_synthesis_world(root, sz)
+        paths, out = world["paths"], os.path.join(root, "bf16")
+        args = synthesizer_args(paths, out, device, "--dtype", "bfloat16",
+                                "--moment_dtype", "bfloat16")
+        args[args.index("--repeat") + 1] = "1"
+        fits, fit_eval = [], stage.fit_eval_seed
+
+        def recording(trainer, *a, **kw):
+            fits.append((trainer, fit_eval(trainer, *a, **kw)))
+            return fits[-1][1]
+
+        stage.fit_eval_seed = recording
+        try:
+            t0 = time.perf_counter()
+            summary = stage.run(stage.build_parser().parse_args(args))
+            stage_s = time.perf_counter() - t0
+        finally:
+            stage.fit_eval_seed = fit_eval
+        (trainer, (history, mcd, recon, origin)), = fits
+        check(trainer.model.dtype == torch.bfloat16
+              and all(p.dtype == torch.float32 for p in trainer.model.parameters())
+              and all(m.dtype == torch.bfloat16 for m in trainer.optimizer.mu),
+              "the bf16 synthesizer's model, parameters or moments have other dtypes")
+        seed = trainer.seed
+        te = split_indices(sz["trials"], [0.9, 0.1], seed=seed)[-1]
+        zero = compute_mcd(origin, np.zeros_like(origin))
+        check(np.isfinite(history).all() and np.isfinite(recon).all() and mcd < zero,
+              f"bf16 synthesizer: history {history}, test MCD {mcd} (zero predictor {zero})")
+        print(f"bf16 synthesizer stage, SynthesisFull ({summary['model_size']:,} parameters), "
+              f"1 seed x {SYN_EPOCHS} epochs at batch {SYN_BATCH}, bf16 moments: "
+              f"{stage_s:.2f} s wall, test MCD {mcd:.2f} (zero predictor ~{zero:.0f}), mel r "
+              f"{summary['mel_pearson_r_mean']:.4f} [{card}]")
+
+        ckpt = os.path.join(out, "ckpts", f"SynthesisFull_seed_{seed}")
+        served_summary = serving.run(serving.build_parser().parse_args([
+            "--sample_path", paths["sample"], "--channel_file", paths["channels"],
+            "--config_file", paths["config"], "--tone_model_name", "CNNRNN",
+            "--tone_model_path", paths["tone"], "--syllable_model_name", "CNN",
+            "--syllable_model_path", paths["syll"], "--synthesis_model_name", "SynthesisFull",
+            "--synthesis_model_path", ckpt, "--synthesis_dtype", "bfloat16",
+            "--audio_sampling_rate", str(SYN_SR), "--output_dir", os.path.join(out, "served"),
+            "--n_wavs", "1", "--device", device]))
+        check(np.isfinite(served_summary["mel_mcd"]), f"serving summary {served_summary}")
+        decoder = serving.load_decoder(
+            world["channels"], world["config"], SYN_LENGTH, "CNNRNN", paths["tone"], "CNN",
+            paths["syll"], synthesis_model_name="SynthesisFull", synthesis_model_path=ckpt,
+            synthesis_dtype="bfloat16", device=device)
+        ecog = world["ecog"][te]
+        served = np.concatenate([decoder.decode(ecog[lo:lo + SYN_BATCH], world["channels"])["mel"]
+                                 for lo in range(0, len(te), SYN_BATCH)])
+        diff = float(np.abs(served - recon).max())
+        check(served.dtype == np.float32 and bf16_close(served, recon),
+              f"bf16 served mels vs evaluate's: max abs diff {diff}")
+        print(f"serving --synthesis_dtype bfloat16: mel_mcd {served_summary['mel_mcd']:.4f} on "
+              f"all {sz['trials']} trials; served test mels vs evaluate's max abs diff "
+              f"{diff:.3g} (batches of {SYN_BATCH}) [{card}]")
+
+
+def bf16_phase(card: str, device: str = "cuda", pipe_sizes: dict = PIPE_FULL,
+               syn_sizes: dict = SYN_FULL) -> None:
+    """bf16 compute on the card: the step times against float32, card vs
+    CPU forwards and deterministic cuDNN, ``configs/fast_bf16.yaml``
+    through the pipeline, and the bf16 synthesizer trained and served;
+    K1 must launch 0 times. ``device="cpu"`` with the rehearsal sizes
+    runs it all but the timings on a CPU."""
+    from decode_tonal_langauge_tpu_torch.ops import cuda_iir
+
+    cuda_iir.LAUNCHES = 0
+    if device == "cuda":
+        bf16_step_times(card, device, syn_sizes)
+    bf16_card_vs_cpu(card, device, syn_sizes)
+    bf16_pipeline(card, device, pipe_sizes)
+    bf16_synthesizer(card, device, syn_sizes)
+    print(f"K1 launches during the bf16 phase: {cuda_iir.LAUNCHES}")
+    check(cuda_iir.LAUNCHES == 0, "K1 launched during the bf16 phase")
+
+
 def main() -> None:
     import torch
 
@@ -1743,6 +2101,7 @@ def main() -> None:
     timed(serving_phase, card)
     print(f"K1 launches during the serving phase: {cuda_iir.LAUNCHES}")
     timed(pipeline_phase, card)
+    timed(bf16_phase, card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

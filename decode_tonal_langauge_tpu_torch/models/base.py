@@ -1,12 +1,20 @@
-"""Model base utilities: shape math, activations, seeded initialisation.
+"""Model base utilities: shape math, activations, seeded initialisation,
+and the compute-dtype helpers.
 
-Counterpart of ``decode_tonal_langauge_tpu/models/base.py``.
+Counterpart of ``decode_tonal_langauge_tpu/models/base.py``. A model's
+``dtype`` is its compute dtype, as a Flax module's ``dtype`` field: the
+parameters stay float32 at rest and each layer casts its input and its
+weights to ``dtype`` inside ``forward``, so autograd returns float32
+gradients to the float32 parameters (the JAX ``.astype``). ``None``
+computes in the parameters' own dtype (float32, or float64 for a
+reference run). ``torch.autocast`` is not used: it follows its own op
+lists and would also cast the float32 class heads.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +29,52 @@ def conv_output_length(
 ) -> int:
     """Torch-style conv/pool output-length formula (floor division)."""
     return (length + 2 * padding - kernel) // stride + 1
+
+
+def compute_dtype(dtype: Any) -> Optional[torch.dtype]:
+    """A compute dtype from a config: a name (``"bfloat16"``,
+    ``"float32"``, ``"float16"``, as YAML gives it) or a floating
+    ``torch.dtype``; None stays None. Raises on an unknown name or a
+    non-floating dtype."""
+    if dtype is None:
+        return None
+    resolved = getattr(torch, dtype, None) if isinstance(dtype, str) else dtype
+    if isinstance(resolved, torch.dtype) and resolved.is_floating_point:
+        return resolved
+    raise ValueError(
+        f"compute dtype {dtype!r}: expected a floating dtype name "
+        "(float32, bfloat16, float16) or a floating torch.dtype"
+    )
+
+
+def conv(layer: nn.Module, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``layer`` (an ``nn.Conv1d``/``nn.Conv2d``) applied to ``x`` in
+    ``dtype``; None runs the layer as it is."""
+    if dtype is None:
+        return layer(x)
+    return layer._conv_forward(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``layer`` applied to ``x`` in ``dtype``; None runs it as it is."""
+    if dtype is None:
+        return layer(x)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` promoted to float32 (a float64 reference run stays float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def head(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """A class head computed in at least float32, whatever the model's
+    compute dtype: a bfloat16 head would put the logits on bfloat16's
+    2^-8 grid, and its sigmoid outputs would then tie exactly, so that
+    argmax, and with it training's and evaluation's metrics of one
+    checkpoint, would hang on rounding (JAX ``models/deep.py:87-94``)."""
+    x = at_least_f32(x)
+    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
 def get_activation(name: str, **kwargs) -> Callable[[torch.Tensor], torch.Tensor]:

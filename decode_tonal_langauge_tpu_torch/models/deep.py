@@ -5,12 +5,15 @@ models are NHWC (time = H, electrodes = W, features = C); these convolve
 in PyTorch's NCHW, and every flatten and concat follows the JAX order:
 the CNN flattens (B, t, C, 256), and the CNN-RNN reshapes to
 (B, t', w * 256), w-major, before its second LSTM. Pooling comes before
-the leaky ReLU, and the class heads compute in their weights' dtype (f32).
-Dropout draws its mask from the generator the trainer sets
-(``ops/dropout.py``).
+the leaky ReLU. ``dtype`` is the compute dtype of every stencil, conv,
+dense and LSTM (``models/base.py``); the class heads compute in at least
+float32 (``base.head``) and the outputs are float32. Dropout draws its
+mask from the generator the trainer sets (``ops/dropout.py``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +22,7 @@ from torch import nn
 from ..ops.dropout import Dropout
 from ..ops.lstm import TimeBatchedLSTM
 from ..ops.stencil import StencilConvPoolLeaky
-from .base import conv_output_length
+from .base import compute_dtype, conv, conv_output_length, dense, head
 
 
 def cnn_latent_length(input_length: int) -> int:
@@ -50,7 +53,8 @@ class CNNClassifier(nn.Module):
 
     def __init__(self, input_channels: int, input_length: int,
                  n_classes: int, dropout_rate: float = 0.5,
-                 negative_slope: float = 0.01) -> None:
+                 negative_slope: float = 0.01,
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         if n_classes < 2:
             raise ValueError("Number of classes must be at least 2.")
@@ -64,10 +68,11 @@ class CNNClassifier(nn.Module):
                 "architecture."
             )
         self.negative_slope = negative_slope
+        self.dtype = dtype = compute_dtype(dtype)
         widths = [512, 512, 512, 512, 512, 256]
         self.convs = nn.ModuleList(
             [StencilConvPoolLeaky(widths[0], 3, pool=2,
-                                  negative_slope=negative_slope)]
+                                  negative_slope=negative_slope, dtype=dtype)]
             + [nn.Conv2d(widths[i - 1], widths[i], (3, 1))
                for i in range(1, len(widths))]
         )
@@ -77,14 +82,14 @@ class CNNClassifier(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = _nhwc_to_nchw(self.convs[0](x.transpose(1, 2)))
-        for i, conv in enumerate(self.convs[1:], start=1):
-            y = conv(y)
+        for i, layer in enumerate(self.convs[1:], start=1):
+            y = conv(layer, y, self.dtype)
             if i != 4:  # block 5 has no pool
                 y = F.max_pool2d(y, (2, 1), (2, 1))
             y = F.leaky_relu(y, self.negative_slope)
         y = self.dropout(y)
-        y = F.leaky_relu(self.fc1(_flatten_nhwc(y)), self.negative_slope)
-        return torch.sigmoid(self.fc2(y.to(self.fc2.weight.dtype)))
+        y = F.leaky_relu(dense(self.fc1, _flatten_nhwc(y), self.dtype), self.negative_slope)
+        return torch.sigmoid(head(self.fc2, y))
 
 
 class CNNRNNClassifier(nn.Module):
@@ -96,7 +101,8 @@ class CNNRNNClassifier(nn.Module):
 
     def __init__(self, input_channels: int, input_length: int,
                  n_classes: int, lstm_dim: int = 800, dropout: float = 0.5,
-                 negative_slope: float = 0.01) -> None:
+                 negative_slope: float = 0.01,
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         if n_classes < 2:
             raise ValueError("Number of classes must be at least 2.")
@@ -109,16 +115,17 @@ class CNNRNNClassifier(nn.Module):
         self.input_length = input_length
         self.lstm_dim = lstm_dim
         self.negative_slope = negative_slope
-        self.lstm1 = TimeBatchedLSTM(input_channels, lstm_dim)
+        self.dtype = dtype = compute_dtype(dtype)
+        self.lstm1 = TimeBatchedLSTM(input_channels, lstm_dim, dtype=dtype)
         self.conv1 = StencilConvPoolLeaky(1024, 7, pool=2,
-                                          negative_slope=negative_slope)
+                                          negative_slope=negative_slope, dtype=dtype)
         self.conv2 = StencilConvPoolLeaky(1024, 7, pool=2,
-                                          negative_slope=negative_slope)
+                                          negative_slope=negative_slope, dtype=dtype)
         self.conv3a = nn.Conv2d(1024, 512, (7, 1))
         self.conv3b = nn.Conv2d(512, 256, (7, 1))
         self.drop = Dropout(dropout)
         width = lstm_dim // input_length + input_channels
-        self.lstm2 = TimeBatchedLSTM(width * 256, 512)
+        self.lstm2 = TimeBatchedLSTM(width * 256, 512, dtype=dtype)
         self.head = nn.Linear(512, n_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -133,10 +140,10 @@ class CNNRNNClassifier(nn.Module):
         x1 = self.conv2(x1.reshape(b, t, self.lstm_dim // t))
         xf = _nhwc_to_nchw(torch.cat([x1, raw], dim=2))  # concat on width
 
-        y = F.leaky_relu(self.conv3a(xf), self.negative_slope)
-        y = F.max_pool2d(self.conv3b(y), (3, 1), (3, 1))
+        y = F.leaky_relu(conv(self.conv3a, xf, self.dtype), self.negative_slope)
+        y = F.max_pool2d(conv(self.conv3b, y, self.dtype), (3, 1), (3, 1))
         y = self.drop(F.leaky_relu(y, self.negative_slope))
         # (B, 256, t'', w) -> (B, t'', w * 256), w-major as in JAX
         y = y.permute(0, 2, 3, 1).reshape(b, y.shape[2], -1)
         y = self.lstm2(y)[:, -1, :]
-        return torch.sigmoid(self.head(y.to(self.head.weight.dtype)))
+        return torch.sigmoid(head(self.head, y))

@@ -6,7 +6,11 @@ Counterpart of ``decode_tonal_langauge_tpu/models/factory.py`` and of
 the serving CLI's short name (``CNN``, ``CNNRNN``, ``ShallowNN``,
 ``logistic``) or by a dotted path: the JAX package's and the reference's
 paths resolve to the port's classes (the registry maps the latter onto
-the port's modules), and any other path is imported as given.
+the port's modules), and any other path is imported as given. A
+``dtype`` kwarg names the compute dtype (``models/base.compute_dtype``);
+as every other kwarg, it reaches only classes whose constructor takes it
+(``logistic`` and ``ShallowNN`` drop it, as JAX's dataclass-field filter
+does).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Any, Dict, Optional
 from torch import nn
 
 from ..registry import _PKG, canonical_module_path
+from .base import compute_dtype
 from .deep import CNNClassifier, CNNRNNClassifier
 from .simple import LogisticRegressionClassifier, ShallowNNClassifier
 from .synthesis import SynthesisLite, SynthesisModelCNN
@@ -69,14 +74,6 @@ def resolve_model_class(name: str) -> type:
     return cls
 
 
-def _check_dtype(kwargs: Dict[str, Any]) -> None:
-    dtype = kwargs.pop("dtype", None)
-    if dtype not in (None, "float32"):
-        raise ValueError(
-            f"compute dtype {dtype!r}: the port computes in float32 only"
-        )
-
-
 def get_classifier_by_name(
     model_path: str,
     n_classes: int,
@@ -86,7 +83,9 @@ def get_classifier_by_name(
 ) -> nn.Module:
     """Build a classifier with the kwargs its constructor accepts, from
     the superset {n_classes, n_channels, seq_length, input_channels,
-    input_length, input_dim} plus ``classifier_kwargs``."""
+    input_length, input_dim} plus ``classifier_kwargs``; a ``dtype`` name
+    there becomes a ``torch.dtype`` (an unknown or non-floating one
+    raises, whether or not the class takes it)."""
     cls = resolve_model_class(model_path)
     kwargs: Dict[str, Any] = {
         "n_classes": n_classes,
@@ -97,23 +96,25 @@ def get_classifier_by_name(
         "input_dim": n_channels * seq_length,
         **(classifier_kwargs or {}),
     }
-    _check_dtype(kwargs)
+    if "dtype" in kwargs:
+        kwargs["dtype"] = compute_dtype(kwargs["dtype"])
     allowed = inspect.signature(cls.__init__).parameters
     return cls(**{k: v for k, v in kwargs.items() if k in allowed})
 
 
 def build_synthesis_model(
     name: str, output_dim: int, n_channels: int, n_timepoints: int,
-    dtype: str = "float32",
+    dtype: Any = "float32",
 ) -> nn.Module:
-    """``SynthesisFull`` (SynthesisModelCNN) or ``SynthesisLite``; a
-    compute ``dtype`` other than float32 raises."""
-    _check_dtype({"dtype": dtype})
+    """``SynthesisFull`` (SynthesisModelCNN) or ``SynthesisLite``,
+    computing in ``dtype`` (a name or a ``torch.dtype``)."""
+    dtype = compute_dtype(dtype)
     if name not in SYNTHESIS_MODELS:
         raise ValueError(
             f"Unknown synthesis model '{name}'; expected one of "
             f"{sorted(SYNTHESIS_MODELS)}."
         )
     return SYNTHESIS_MODELS[name](
-        output_dim=output_dim, n_channels=n_channels, n_timepoints=n_timepoints
+        output_dim=output_dim, n_channels=n_channels, n_timepoints=n_timepoints,
+        dtype=dtype,
     )

@@ -6,11 +6,15 @@ sequences (B, 2, n_dynamics) and return a flattened mel vector
 (B, output_dim). Convolutions run in NCHW / NCL; flattens and concats
 follow the JAX (channels-last) order. Dropout draws its mask from the
 generator the trainer sets (``ops/dropout.py``); SynthesisLite's batch
-norm trains as Flax's does (:class:`BatchNorm1d`). The heads compute in
-their weights' dtype (f32, or f64 for a float64 reference run).
+norm trains as Flax's does (:class:`BatchNorm1d`). ``dtype`` is the
+compute dtype of every stencil, conv, dense and LSTM, the output layer
+included, as in JAX (``models/base.py``); the outputs are float32 (or
+float64 for a float64 reference run).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +23,7 @@ from torch import nn
 from ..ops.dropout import Dropout
 from ..ops.lstm import TimeBatchedLSTM
 from ..ops.stencil import StencilConvPoolLeaky
-from .base import conv_output_length
+from .base import at_least_f32, compute_dtype, conv, conv_output_length, dense
 from .deep import _flatten_nhwc, _nhwc_to_nchw
 
 
@@ -43,14 +47,18 @@ class BatchNorm1d(nn.BatchNorm1d):
     (Flax's momentum 0.99, torch's 0.01). ``nn.BatchNorm1d`` would update
     the running variance with the unbiased batch variance, n / (n - 1)
     times Flax's. Both modes compute ``(x - mean) * (rsqrt(var + eps) *
-    scale) + bias`` as Flax does. The state dict keeps ``nn.BatchNorm1d``'s
-    keys."""
+    scale) + bias`` as Flax does. The statistics and the normalisation
+    are computed in at least float32 and the running statistics stay
+    float32, as Flax's ``force_float32_reductions``; the output is in the
+    input's dtype (the model's compute dtype). The state dict keeps
+    ``nn.BatchNorm1d``'s keys."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.01) -> None:
         super().__init__(num_features, eps=eps, momentum=momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype, x = x.dtype, at_least_f32(x)
         if self.training:
             mean = x.mean(dim=(0, 2))
             var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
@@ -62,7 +70,7 @@ class BatchNorm1d(nn.BatchNorm1d):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
+        return ((x - mean[:, None]) * mul[:, None] + self.bias[:, None]).to(dtype)
 
 
 class SynthesisModelCNN(nn.Module):
@@ -75,7 +83,8 @@ class SynthesisModelCNN(nn.Module):
     def __init__(self, output_dim: int, n_channels: int,
                  n_timepoints: int = 200, lstm_channels: int = 6,
                  conv_channels: int = 64, dropout: float = 0.5,
-                 negative_slope: float = 0.01) -> None:
+                 negative_slope: float = 0.01,
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         self.latent_len = synthesis_cnn_latent_length(n_timepoints)
         if self.latent_len <= 0:
@@ -85,8 +94,10 @@ class SynthesisModelCNN(nn.Module):
         self.n_channels = n_channels
         self.lstm_channels = lstm_channels
         self.negative_slope = negative_slope
+        self.dtype = dtype = compute_dtype(dtype)
         self.ecog_convs = nn.ModuleList([
-            StencilConvPoolLeaky(512, 3, pool=2, negative_slope=negative_slope),
+            StencilConvPoolLeaky(512, 3, pool=2, negative_slope=negative_slope,
+                                 dtype=dtype),
             nn.Conv2d(512, 512, (3, 1)),
             nn.Conv2d(512, 512, (3, 1)),
             nn.Conv2d(512, 256, (1, 1)),
@@ -94,7 +105,7 @@ class SynthesisModelCNN(nn.Module):
         ])
         self.ecog_dropout = Dropout(dropout)
         self.label_lstm = TimeBatchedLSTM(
-            2, self.latent_len * n_channels * lstm_channels
+            2, self.latent_len * n_channels * lstm_channels, dtype=dtype
         )
         widths = [conv_channels + lstm_channels, 128, 128, 128, 128,
                   conv_channels]
@@ -109,8 +120,8 @@ class SynthesisModelCNN(nn.Module):
                 inputs_labels: torch.Tensor) -> torch.Tensor:
         b = inputs_ecog.shape[0]
         x = _nhwc_to_nchw(self.ecog_convs[0](inputs_ecog.transpose(1, 2)))
-        for i, conv in enumerate(self.ecog_convs[1:], start=1):
-            x = conv(x)
+        for i, layer in enumerate(self.ecog_convs[1:], start=1):
+            x = conv(layer, x, self.dtype)
             if i != 4:  # the final conv block has no pool
                 x = F.max_pool2d(x, (2, 1), (2, 1))
             x = F.leaky_relu(x, self.negative_slope)
@@ -121,10 +132,9 @@ class SynthesisModelCNN(nn.Module):
             b, self.latent_len, self.n_channels, self.lstm_channels
         ))
         y = torch.cat([x, x2], dim=1)  # concat on features
-        for conv in self.concat_convs:
-            y = F.leaky_relu(conv(y), 0.1)
-        y = _flatten_nhwc(y).to(self.output_layer.weight.dtype)
-        return self.output_layer(y)
+        for layer in self.concat_convs:
+            y = F.leaky_relu(conv(layer, y, self.dtype), 0.1)
+        return at_least_f32(dense(self.output_layer, _flatten_nhwc(y), self.dtype))
 
 
 class SynthesisLite(nn.Module):
@@ -136,14 +146,16 @@ class SynthesisLite(nn.Module):
     def __init__(self, output_dim: int, n_channels: int,
                  n_timepoints: int = 200, label_dim: int = 2,
                  conv_channels: int = 32, lstm_hidden: int = 64,
-                 dropout: float = 0.3, negative_slope: float = 0.01) -> None:
+                 dropout: float = 0.3, negative_slope: float = 0.01,
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         self.negative_slope = negative_slope
+        self.dtype = dtype = compute_dtype(dtype)
         self.conv1 = nn.Conv1d(n_channels, conv_channels, 5, padding=2)
         self.bn1 = BatchNorm1d(conv_channels)
         self.conv2 = nn.Conv1d(conv_channels, conv_channels, 3, padding=1)
         self.bn2 = BatchNorm1d(conv_channels)
-        self.label_lstm = TimeBatchedLSTM(label_dim, lstm_hidden)
+        self.label_lstm = TimeBatchedLSTM(label_dim, lstm_hidden, dtype=dtype)
         self.drop = Dropout(dropout)
         t_out = n_timepoints // 2 // 2
         self.fc1 = nn.Linear(t_out * conv_channels + lstm_hidden, 512)
@@ -151,13 +163,13 @@ class SynthesisLite(nn.Module):
 
     def forward(self, x_ecog: torch.Tensor,
                 x_label: torch.Tensor) -> torch.Tensor:
-        slope = self.negative_slope
-        x = F.max_pool1d(self.bn1(self.conv1(x_ecog)), 2, 2)
+        slope, dt = self.negative_slope, self.dtype
+        x = F.max_pool1d(self.bn1(conv(self.conv1, x_ecog, dt)), 2, 2)
         x = F.leaky_relu(x, slope)
-        x = F.max_pool1d(self.bn2(self.conv2(x)), 2, 2)
+        x = F.max_pool1d(self.bn2(conv(self.conv2, x, dt)), 2, 2)
         x = F.leaky_relu(x, slope)
         x = x.transpose(1, 2).reshape(x.shape[0], -1)  # (B, T/4 * F)
         lbl = self.label_lstm(x_label.transpose(1, 2))[:, -1, :]
         y = self.drop(torch.cat([x, lbl], dim=-1))
-        y = F.leaky_relu(self.fc1(y), slope)
-        return self.fc2(y.to(self.fc2.weight.dtype))
+        y = F.leaky_relu(dense(self.fc1, y, dt), slope)
+        return at_least_f32(dense(self.fc2, y, dt))

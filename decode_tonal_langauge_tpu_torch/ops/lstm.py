@@ -13,9 +13,19 @@ the pre-activation gate deltas ``da``; the weight and input gradients are
 then time-batched matmuls over the stacked ``(T*B, 4H)`` deltas, so no
 weight-gradient accumulator runs through the loop. Without a gradient to
 take (serving), the forward keeps nothing but ``h``.
+
+A compute ``dtype`` (bfloat16) runs the projections, the recurrence, the
+cell state and the gates in that dtype, as JAX's ``TimeBatchedLSTM``
+does. The weight gradients are then bf16 matmuls and a bf16 sum, which
+accumulate in float32 and round once to bf16, JAX's
+``preferred_element_type=float32`` rule: ATen's reductions and oneDNN's
+GEMMs always do, cuBLAS does under ``runtime.device.exact_f32`` (its
+``f32_accumulation``), which every train step opens.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -117,15 +127,22 @@ class TimeBatchedLSTM(nn.Module):
     """LSTM returning the full hidden sequence (B, T, features), with
     concatenated-gate parameters ``wi`` (I, 4H), ``wh`` (H, 4H), ``b``
     (4H,) — the Flax ``cell/{ii..io}`` and ``cell/{hi..ho}`` denses
-    concatenated in gate order (``convert.py``)."""
+    concatenated in gate order (``convert.py``). The parameters stay in
+    their own dtype; ``dtype`` (None: theirs) is the compute dtype that x,
+    the initial state and the weights are cast to."""
 
-    def __init__(self, in_features: int, features: int) -> None:
+    def __init__(self, in_features: int, features: int,
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
         self.features = features
+        self.dtype = dtype
         self.wi = nn.Parameter(torch.empty(in_features, 4 * features))
         self.wh = nn.Parameter(torch.empty(features, 4 * features))
         self.b = nn.Parameter(torch.zeros(4 * features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        wi, wh, b = self.wi, self.wh, self.b
+        if self.dtype is not None:
+            x, wi, wh, b = (t.to(self.dtype) for t in (x, wi, wh, b))
         h0 = x.new_zeros((x.shape[0], self.features))
-        return lstm_sequence(x, h0, h0, self.wi, self.wh, self.b)
+        return lstm_sequence(x, h0, h0, wi, wh, b)

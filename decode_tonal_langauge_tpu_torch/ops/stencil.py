@@ -10,10 +10,14 @@ is K broadcast products of time-shifted views:
 Written as the JAX package writes it: each pool phase is its own sum of
 shifted products, phases combine with ``maximum``, then bias and leaky
 ReLU. Every op is an exact f32 elementwise product or sum (no cuDNN, so
-TF32 never enters), and pooling comes before the activation.
+TF32 never enters), and pooling comes before the activation. A compute
+``dtype`` (bfloat16) casts x, the weight and the bias to it, and the K
+shifted products accumulate in that dtype, as JAX's do.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -27,13 +31,18 @@ def stencil_conv_pool_leaky(
     *,
     pool: int,
     negative_slope: float,
+    dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """leaky(max_pool(conv_valid(x, weight) + bias)).
 
     x: (B, T, C); weight: (K, F); bias: (F,). ``pool`` is the max-pool
     window/stride over time (1 skips pooling). Returns (B, U, C, F) with
-    U = (T - K + 1) // pool, the JAX package's NHWC layout.
+    U = (T - K + 1) // pool, the JAX package's NHWC layout. ``dtype``
+    (None: the inputs' own) is the dtype the products, sums and output
+    are computed in.
     """
+    if dtype is not None:
+        x, weight, bias = x.to(dtype), weight.to(dtype), bias.to(dtype)
     k_taps = weight.shape[0]
     u = (x.shape[1] - k_taps + 1) // pool
 
@@ -56,11 +65,15 @@ class StencilConvPoolLeaky(nn.Module):
     """Conv (K, 1) VALID + (pool, 1) max-pool + leaky ReLU on a C_in=1
     image. Called with the (B, T, C) field; returns (B, U, C, F).
 
-    ``weight`` is (K, F): the Flax kernel (K, 1, 1, F) reshaped."""
+    ``weight`` is (K, F): the Flax kernel (K, 1, 1, F) reshaped; it stays
+    in its own dtype and ``dtype`` (None: the weight's) is the compute
+    dtype."""
 
     def __init__(self, features: int, kernel_size: int, pool: int = 2,
-                 negative_slope: float = 0.01) -> None:
+                 negative_slope: float = 0.01,
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__()
+        self.dtype = dtype
         self.pool = pool
         self.negative_slope = negative_slope
         self.weight = nn.Parameter(torch.empty(kernel_size, features))
@@ -69,5 +82,5 @@ class StencilConvPoolLeaky(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return stencil_conv_pool_leaky(
             x, self.weight, self.bias,
-            pool=self.pool, negative_slope=self.negative_slope,
+            pool=self.pool, negative_slope=self.negative_slope, dtype=self.dtype,
         )

@@ -32,8 +32,31 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 @contextlib.contextmanager
+def f32_accumulation():
+    """cuBLAS sums bfloat16 and float16 GEMMs in float32 for the duration
+    of the block, rounding once at the end.
+
+    By default cuBLAS may reduce a half-precision GEMM's split-K partial
+    sums in the half type (``allow_bf16_reduced_precision_reduction``);
+    JAX asks XLA for float32 accumulation (``preferred_element_type``).
+    Float32 GEMMs are untouched. The caller's flags are restored on exit.
+    """
+    matmul = torch.backends.cuda.matmul
+    before = (matmul.allow_bf16_reduced_precision_reduction,
+              matmul.allow_fp16_reduced_precision_reduction)
+    matmul.allow_bf16_reduced_precision_reduction = False
+    matmul.allow_fp16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        (matmul.allow_bf16_reduced_precision_reduction,
+         matmul.allow_fp16_reduced_precision_reduction) = before
+
+
+@contextlib.contextmanager
 def exact_f32(deterministic: bool = False):
-    """cuDNN convolutions in full f32 for the duration of the block.
+    """cuDNN convolutions in full f32, and half-precision GEMMs summed in
+    f32 (:func:`f32_accumulation`), for the duration of the block.
 
     cuDNN defaults to TF32 (about three decimal digits), which would break
     argmax parity with the JAX reference. Matmuls already default to full
@@ -49,5 +72,5 @@ def exact_f32(deterministic: bool = False):
         benchmark=cudnn.benchmark and not deterministic,
         deterministic=cudnn.deterministic or deterministic,
         allow_tf32=False,
-    ):
+    ), f32_accumulation():
         yield

@@ -238,9 +238,13 @@ def load_decoder(
     mel_dim: Optional[int] = None,
     tone_model_kwargs: Optional[Dict[str, Any]] = None,
     syllable_model_kwargs: Optional[Dict[str, Any]] = None,
+    synthesis_dtype: Any = "float32",
     device: DeviceLike = None,
 ) -> TonalDecoder:
-    """Rebuild the frozen models from checkpoints and wire a decoder."""
+    """Rebuild the frozen models from checkpoints and wire a decoder. The
+    classifiers' compute dtype comes in their kwargs (``dtype``), the
+    synthesizer's as ``synthesis_dtype``; the checkpoints hold float32
+    parameters either way."""
     if bool(synthesis_model_name) != bool(synthesis_model_path):
         raise ValueError(
             "synthesis_model_name and synthesis_model_path must be given "
@@ -277,7 +281,8 @@ def load_decoder(
                 "and no mel_dim was supplied."
             )
         synthesis_model = build_synthesis_model(
-            synthesis_model_name, mel_dim, len(non), n_timepoints
+            synthesis_model_name, mel_dim, len(non), n_timepoints,
+            dtype=synthesis_dtype,
         )
         synthesis_model.load_state_dict(params)
 
@@ -334,8 +339,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthesis_model_path", type=str, default=None)
     p.add_argument("--tone_model_kwargs", type=str, default=None,
                    help='JSON dict of model kwargs used at training time, '
-                        'e.g. \'{"lstm_dim": 400}\'.')
+                        'e.g. \'{"lstm_dim": 400, "dtype": "bfloat16"}\'.')
     p.add_argument("--syllable_model_kwargs", type=str, default=None)
+    p.add_argument("--synthesis_dtype", type=str, default="float32",
+                   help="Synthesis-model compute dtype (match "
+                        "train_synthesizer's --dtype; the checkpoint's "
+                        "params are float32 either way).")
     p.add_argument("--audio_sampling_rate", type=int, default=24414)
     p.add_argument("--output_dir", type=str, required=True)
     p.add_argument("--n_wavs", type=int, default=4)
@@ -571,6 +580,7 @@ def run(params: argparse.Namespace) -> Dict[str, Any]:
         mel_dim=dataset_config.get("mel_dim"),
         tone_model_kwargs=_parse_model_kwargs(params.tone_model_kwargs),
         syllable_model_kwargs=_parse_model_kwargs(params.syllable_model_kwargs),
+        synthesis_dtype=params.synthesis_dtype,
         device=params.device,
     )
     if streaming:

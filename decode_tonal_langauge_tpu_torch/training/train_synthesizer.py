@@ -18,8 +18,9 @@ Runs on one device (``--device``; default the CUDA card, and it raises
 without one). The JAX stage's ``--seed_parallel``, ``--parallel_data``
 and ``--no_compilation_cache`` are accepted and change nothing: the
 seeds run one at a time with results equal to a sequential fit's, there
-is one device and no compile cache. ``--dtype`` other than float32
-raises. Config JSON keys: ``mel_kwargs``, ``tone_dynamic_mapping``,
+is one device and no compile cache. ``--dtype bfloat16`` builds the
+synthesizer computing in bfloat16 (parameters float32); the frozen
+classifiers stay float32. Config JSON keys: ``mel_kwargs``, ``tone_dynamic_mapping``,
 ``n_syllables``, ``n_tones``.
 """
 
@@ -76,8 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--dtype", type=str, default="float32",
-        help="Synthesis-model compute dtype: the port computes in float32 "
-             "only and raises on any other.",
+        help="Synthesis-model compute dtype (params stay f32): bfloat16 "
+             "runs the convs, the label LSTM and the output layer in it.",
     )
     parser.add_argument("--syllable_model_name", type=str, required=True)
     parser.add_argument("--tone_model_name", type=str, required=True)

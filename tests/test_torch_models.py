@@ -138,8 +138,20 @@ def test_factory_names_and_dtype():
                       simple.LogisticRegressionClassifier)
     assert isinstance(build_synthesis_model("SynthesisFull", 8, 3, 64),
                       synthesis.SynthesisModelCNN)
-    with pytest.raises(ValueError, match="float32"):
-        get_classifier_by_name("CNN", 2, 3, 128, {"dtype": "bfloat16"})
+    # A compute dtype builds a bf16 model whose parameters stay float32,
+    # an unknown or non-floating name raises, and classes without a dtype
+    # (logistic, ShallowNN) drop it, as JAX's dataclass-field filter does.
+    bf16 = get_classifier_by_name("CNN", 2, 3, 128, {"dtype": "bfloat16"})
+    assert bf16.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in bf16.parameters())
+    syn = build_synthesis_model("SynthesisLite", 8, 3, 64, dtype="bfloat16")
+    assert syn.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in syn.parameters())
+    for bad in ("bfloat17", "int32"):
+        with pytest.raises(ValueError, match="compute dtype"):
+            get_classifier_by_name("CNN", 2, 3, 128, {"dtype": bad})
+    assert isinstance(get_classifier_by_name("logistic", 2, 3, 4, {"dtype": "bfloat16"}),
+                      simple.LogisticRegressionClassifier)
     with pytest.raises(ValueError, match="Unknown"):
         get_classifier_by_name("Transformer", 2, 3, 128)
 

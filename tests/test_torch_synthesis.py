@@ -55,7 +55,7 @@ from decode_tonal_langauge_tpu_torch.convert import flax_to_state_dict, load_fla
 from decode_tonal_langauge_tpu_torch.data.splits import split_indices
 from decode_tonal_langauge_tpu_torch.models import synthesis
 from decode_tonal_langauge_tpu_torch.models.factory import get_classifier_by_name
-from decode_tonal_langauge_tpu_torch.runtime.checkpoint import save_checkpoint
+from decode_tonal_langauge_tpu_torch.runtime.checkpoint import load_checkpoint, save_checkpoint
 from decode_tonal_langauge_tpu_torch.training import train_synthesizer
 from decode_tonal_langauge_tpu_torch.training.optim import NAdam
 from decode_tonal_langauge_tpu_torch.training.synthesis_trainer import (
@@ -520,11 +520,19 @@ def test_stage_flags(stage_world, tmp_path, capsys):
         train_synthesizer.run(parse([a for a in _stage_args(paths, tmp_path, "port")
                                      if "ckpts" not in a and a != "--checkpoint_dir"]
                                     + ["--device", "cpu", "--evaluate_only"]))
-    with pytest.raises(ValueError, match="float32"):
-        train_synthesizer.run(parse(_stage_args(paths, tmp_path, "port", "--device", "cpu",
-                                                "--dtype", "bfloat16", "--parallel_data",
-                                                "auto", "--no_compilation_cache")))
+    # --dtype bfloat16 trains a bf16 synthesizer whose checkpoints hold
+    # float32 parameters; an unknown dtype name raises.
+    bf16 = train_synthesizer.run(parse(_stage_args(paths, tmp_path, "port", "--device", "cpu",
+                                                   "--dtype", "bfloat16", "--parallel_data",
+                                                   "auto", "--no_compilation_cache")))
     assert "--parallel_data, --no_compilation_cache" in capsys.readouterr().out
+    seeds = json.loads(bf16["seeds"])
+    assert np.isfinite(json.loads(bf16["mcd_all"])).all() and len(seeds) == 2
+    ckpt, _ = load_checkpoint(str(tmp_path / "ckpts" / f"SynthesisLite_seed_{seeds[0]}"))
+    assert all(v.dtype == torch.float32 for k, v in ckpt.items() if "num_batches" not in k)
+    with pytest.raises(ValueError, match="compute dtype"):
+        train_synthesizer.run(parse(_stage_args(paths, tmp_path, "port", "--device", "cpu",
+                                                "--dtype", "bfloat17")))
     with pytest.raises(ValueError, match="Unknown classifier"):
         train_synthesizer.build_classifier("nope", 2, 3, 10)
     with pytest.raises(ValueError, match="Unknown synthesis"):
