@@ -104,7 +104,24 @@ present, or when the port's sources are not beside it.
    3 epochs, MCD below the zero predictor's) served with
    ``--synthesis_dtype bfloat16`` (test mels within four bf16 roundings of
    ``evaluate``'s); K1 0 launches.
-9. Prints each phase's wall time, the ``kernels`` JSON line, then the
+9. Parallel phase (``parallel/``): (a) one train step of the full-width
+   CNN and CNN-RNN (batch 32) and SynthesisFull (batch 8) through the
+   data-parallel layout on a one-rank NCCL group, equal to the plain step
+   bit for bit; (b) a ``torch.distributed.run`` launch of two ranks
+   sharing the card over gloo (this script with ``--parallel-worker``):
+   two NAdam steps of each model, dropout on and a padded batch, at the
+   global batch against the same steps in one process (float32 losses
+   rtol 1e-4; in float64 losses rtol 1e-9 and every weight within 1e-9;
+   the argument is beside PAR_F64_ATOL), equal weights on both ranks,
+   step and all-reduce times; (c) in the same launch the pipeline runner
+   over two synthetic subjects (a narrowing of the pipeline phase's: 32
+   channels, 2 x 48 trials a subject), one subject a rank, merged rows
+   equal to the one-process run's and evaluation's equal to training's;
+   (d) ``serving --parallel_data 2`` ids equal to the one-process decode,
+   mels within 1e-5; (e) with two or more cards, (b)'s steps over NCCL
+   one rank per card (skipped, with a note, on one card). Every launch has
+   a timeout; K1 0 launches in every process.
+10. Prints each phase's wall time, the ``kernels`` JSON line, then the
    final ``ok`` JSON line.
 """
 
@@ -2062,12 +2079,540 @@ def bf16_phase(card: str, device: str = "cuda", pipe_sizes: dict = PIPE_FULL,
     check(cuda_iir.LAUNCHES == 0, "K1 launched during the bf16 phase")
 
 
+# The parallel phase: the multi-device layer (``parallel/``) on the card.
+# (a) one rank over NCCL: a train step of each paper model through the
+#     data-parallel layout (a mesh of one rank, its all-reduce real) equals
+#     the plain step bit for bit under deterministic cuDNN;
+# (b) two ranks sharing the one card over gloo (NCCL refuses two ranks on
+#     one card; the layer's collectives are all-reduce and broadcast, which
+#     gloo runs on CUDA tensors, staged through the host): two NAdam steps
+#     of each model at the global batch against the same two steps in one
+#     process, by the rule below;
+# (c) the pipeline runner on 2 ranks over a 2-subject narrowing of the
+#     pipeline phase's subject (host_shard: one subject a rank): the merged
+#     results.csv rows equal the one-process run's, evaluation's equal
+#     training's;
+# (d) serving --parallel_data 2: ids equal to the one-process decode, mels
+#     within 1e-5;
+# (e) with two or more cards, (b)'s steps over NCCL, one rank per card.
+# Every spawned launch has a timeout; a rank that fails or hangs fails the
+# phase. The rule for (b) and (e): a data-parallel step differs from the
+# one-process step by the order of its sums alone (each rank sums its slice
+# of the batch, the all-reduce adds the slices, and the convolutions pick
+# their algorithms for the slice's shape). In float32 that rounding is
+# carried far into the weights: a max-pool window whose two largest inputs
+# lie within rounding of each other routes its gradient to either one (the
+# training phase's BranchTape), and NAdam's early steps, about lr times the
+# sign of each gradient element, turn the last digits of a near-zero
+# gradient into a full step either way (a CPU rehearsal of SynthesisFull
+# moved whole tensors' updates 2-4% and one weight 4.9 lr). So the float32
+# steps are held by their losses (rtol 1e-4, STEP_LOSS_TOL's) and timed,
+# and the same two steps run in float64 are held tight: float64 puts the
+# rounding ~1e9 times lower, where no near-tie or near-zero gradient of
+# these seeded inputs is within reach, so the losses agree within rtol 1e-9
+# and every weight within 1e-9 of the one-process float64 weight, a million
+# times above float64's rounding of these steps and a million times below
+# one NAdam step (5e-4), which any wrong reduction (a slice counted twice
+# or divided by its own weight instead of the global batch's, other dropout
+# masks) moves many weights by.
+PAR_LOSS_RTOL, PAR_F64_RTOL, PAR_F64_ATOL = 1e-4, 1e-9, 1e-9
+PAR_MEL_ATOL = 1e-5
+PAR_TIMEOUT_S = 600
+PAR_FULL = dict(lstm_dim=800, syn=SYN_FULL,
+                pipe=dict(channels=32, trials_per_block=48, lstm_dim=800))
+PAR_REHEARSAL = dict(lstm_dim=200, syn=SYN_REHEARSAL, pipe=PIPE_REHEARSAL)
+
+
+def par_models(sz: dict) -> dict:
+    """name -> (trainer factory taking ``mesh, device, dtype``, batch
+    factory taking ``device, dtype``): the full-width CNN (8 syllables)
+    and CNN-RNN (4 tones) at batch 32 and SynthesisFull at batch 8,
+    dropout on, seeded weights and batches (the same in either dtype)."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.models.base import init_params
+    from decode_tonal_langauge_tpu_torch.models.factory import get_classifier_by_name
+    from decode_tonal_langauge_tpu_torch.models.simple import LogisticRegressionClassifier
+    from decode_tonal_langauge_tpu_torch.models.synthesis import SynthesisModelCNN
+    from decode_tonal_langauge_tpu_torch.training.synthesis_trainer import SynthesisTrainer
+    from decode_tonal_langauge_tpu_torch.training.trainer import ClassifierTrainer
+
+    def classifier(name, n_classes, kwargs):
+        def make(mesh, device, dtype):
+            model = get_classifier_by_name(name, n_classes, TRAIN_CHANNELS, TRAIN_LENGTH,
+                                           kwargs).to(dtype)
+            t = ClassifierTrainer(model, n_classes, learning_rate=TRAIN_LR, weight_decay=0.01,
+                                  batch_size=TRAIN_BATCH, seed=3, device=device, mesh=mesh)
+            t.init()
+            return t
+
+        def batch(device, dtype):
+            rng = np.random.default_rng(1)
+            x = rng.standard_normal((TRAIN_BATCH, TRAIN_CHANNELS, TRAIN_LENGTH)).astype(np.float32)
+            w = np.ones(TRAIN_BATCH, np.float32)
+            w[-5:] = 0.0  # a padded batch: the slices' weights differ
+            return (torch.tensor(x, device=device).to(dtype),
+                    torch.tensor(rng.integers(0, n_classes, TRAIN_BATCH), device=device),
+                    torch.tensor(w, device=device).to(dtype))
+        return make, batch
+
+    syn = sz["syn"]
+    mel_dim = syn["n_mels"] * 20
+
+    def synthesis(mesh, device, dtype):
+        dummy = [init_params(LogisticRegressionClassifier(syn["cls"] * SYN_LENGTH, k), 0)
+                 for k in (N_TONES, N_SYLLS)]
+        mapping = {str(k): list(np.linspace(0, 1, syn["n_dyn"])) for k in range(N_TONES)}
+        model = SynthesisModelCNN(mel_dim, syn["non"], SYN_LENGTH).to(dtype)
+        t = SynthesisTrainer(model, *dummy,
+                             mapping, learning_rate=SYN_LR, schedule_decay=SYN_DECAY, seed=4,
+                             verbose=False, device=device, mesh=mesh)
+        t.init()
+        return t
+
+    def synthesis_batch_on(device, dtype):
+        return tuple(t.to(device, dtype) for t in synthesis_batch(np.random.default_rng(11),
+                                                                  SYN_BATCH, syn))
+
+    return {"CNN": classifier("CNN", N_SYLLS, {}),
+            "CNNRNN": classifier("CNNRNN", N_TONES, {"lstm_dim": sz["lstm_dim"]}),
+            "SynthesisFull": (synthesis, synthesis_batch_on)}
+
+
+def par_steps(trainer, batch, n: int = 2) -> list:
+    """``n`` train steps of ``trainer`` on this rank's rows of the global
+    ``batch`` (the last tensor its weights); returns the losses."""
+    rows = trainer._layout.rows(batch[0].shape[0])
+    total = batch[-1].sum()
+    return [trainer.train_step(*(t[rows] for t in batch), total)[0].item() for _ in range(n)]
+
+
+def par_step_profile(trainer, batch, device: str) -> dict:
+    """Wall ms of one step (median of 3 after the compared ones), its peak
+    device memory, and from torch.profiler over one step: the collectives'
+    host ms (``all_reduce`` events; gloo stages through the host, so this
+    is its whole time) and device ms (NCCL's kernels, gloo's copies), and
+    the device's busy ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    walls = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        par_steps(trainer, batch, 1)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    peak = float("nan")
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        par_steps(trainer, batch, 1)
+        sync()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device == "cuda" else [])
+    with profile(activities=acts) as prof:
+        par_steps(trainer, batch, 1)
+        sync()
+    host = dev = busy = 0.0
+    for e in prof.key_averages():
+        d = (getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)) / 1e3
+        on_device = "CUDA" in str(getattr(e, "device_type", ""))  # kernels, copies
+        busy += d if on_device else 0.0
+        if "allreduce" in e.key.lower().replace("_", ""):
+            if on_device:
+                dev += d
+            else:
+                host += e.cpu_time_total / 1e3
+    return {"step_ms": float(np.median(walls)) * 1e3, "allreduce_host_ms": host,
+            "allreduce_device_ms": dev, "busy_ms": busy, "peak_mib": peak,
+            "allreduce_ms": par_allreduce_ms(trainer, device)}
+
+
+def par_allreduce_ms(trainer, device: str) -> float:
+    """The all-reduce of a step's gradient buffer (every parameter, the
+    step's own dtype) over the ``data`` group alone, after a barrier: ms a
+    call, 5 back to back after 2 warm-ups (CUDA events on the card; the
+    host clock on a CPU). NaN without a mesh. The all-reduce events inside
+    a profiled step also count the wait for the slowest rank."""
+    import torch
+    import torch.distributed as dist
+
+    from decode_tonal_langauge_tpu_torch._timing import time_ms
+    from decode_tonal_langauge_tpu_torch.parallel.distributed import barrier
+
+    layout = trainer._layout
+    if layout.mesh is None:
+        return float("nan")
+    params = list(trainer.model.parameters())
+    buf = torch.zeros(sum(p.numel() for p in params), dtype=params[0].dtype, device=device)
+    call = lambda: dist.all_reduce(buf, group=layout.group)  # noqa: E731
+    barrier("allreduce timing")
+    if device == "cuda":
+        return time_ms(call, warmup=2, runs=5)
+    call()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        call()
+    return (time.perf_counter() - t0) / 5 * 1e3
+
+
+def par_model_run(make, batch_fn, mesh, device: str, dtype, profile: bool) -> dict:
+    """Two steps of one model in ``dtype`` under ``mesh`` (None: one
+    process) from its seeded weights, under deterministic cuDNN: losses,
+    final weights (CPU), a checksum of them, and (``profile``) the step's
+    times."""
+    import torch
+
+    trainer = make(mesh, device, dtype)
+    batch = batch_fn(device, dtype)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        losses = par_steps(trainer, batch)
+        end = trainer.params
+        out = {"losses": losses, "end": end,
+               "checksum": float(sum(v.double().abs().sum() for v in end.values()))}
+        if profile:
+            out.update(par_step_profile(trainer, batch, device))
+    return out
+
+
+def par_faults(name: str, got32: dict, want32: dict, got64: dict, want64: dict) -> list:
+    """Where a data-parallel run breaks the rule above against the
+    one-process runs; empty when it holds. Sets ``got64["worst"]``, the
+    largest weight difference in float64."""
+    faults = []
+    if not np.allclose(got32["losses"], want32["losses"], rtol=PAR_LOSS_RTOL, atol=0):
+        faults.append(f"{name} float32 losses {got32['losses']} vs one process "
+                      f"{want32['losses']}")
+    if not np.allclose(got64["losses"], want64["losses"], rtol=PAR_F64_RTOL, atol=0):
+        faults.append(f"{name} float64 losses {got64['losses']} vs one process "
+                      f"{want64['losses']}")
+    worst = ("", 0.0)
+    for k, ref in want64["end"].items():
+        diff = (got64["end"][k] - ref).abs().max().item()
+        worst = max(worst, (k, diff), key=lambda kv: kv[1])
+        if not diff <= PAR_F64_ATOL:
+            faults.append(f"{name} {k}: float64 weights {diff:.3g} from one process's")
+    got64["worst"] = worst
+    return faults
+
+
+def par_pipeline_config(root: str, sz: dict) -> dict:
+    """The pipeline phase's config over two synthetic subjects."""
+    import copy
+
+    cfg = pipeline_config(root, sz)
+    pipe = cfg["preprocess"]["params"]["pipeline"]["params"]
+    pipe["subject_dirs"], pipe["subject_ids"] = ["Sub1", "Sub2"], [1, 2]
+    subjects = cfg["sample_collection"]["params"]["subjects"]
+    subjects[2] = copy.deepcopy(subjects[1])
+    subjects[2]["textgrid_dir"] = "annotations/subject_2"
+    return cfg
+
+
+def par_pipeline_world(root: str, sz: dict) -> dict:
+    from decode_tonal_langauge_tpu_torch.data.synthetic import SyntheticSpec, write_subject
+
+    spec = SyntheticSpec(n_channels=sz["channels"], ecog_sf=PIPE_SF, n_blocks=2,
+                         trials_per_block=sz["trials_per_block"])
+    for sid in (1, 2):
+        write_subject(f"{root}/raw", sid, spec)
+    return par_pipeline_config(root, sz)
+
+
+def par_pipeline_rows(outputs: dict) -> tuple:
+    key = lambda r: (r["subject"], r["target"])  # noqa: E731
+    return (sorted(read_csv(os.path.join(outputs["training"], "results.csv")), key=key),
+            sorted(read_csv(os.path.join(outputs["evaluation"], "results.csv")), key=key))
+
+
+def parallel_worker(spec_path: str) -> None:
+    """One rank of a ``torch.distributed.run`` launch of this script
+    (``--parallel-worker <spec.json>``): the steps of each model under a
+    mesh over every rank, and optionally the 2-subject pipeline and the
+    serving CLI; writes ``rank<k>.pt`` beside the spec."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from decode_tonal_langauge_tpu_torch import pipeline, serving
+    from decode_tonal_langauge_tpu_torch.ops import cuda_iir
+    from decode_tonal_langauge_tpu_torch.parallel import distributed
+    from decode_tonal_langauge_tpu_torch.parallel.mesh import make_mesh
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = spec["device"]
+    distributed.initialize(backend=spec["backend"], device=device,
+                           timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    rank, world = distributed.process_index(), distributed.process_count()
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    cuda_iir.LAUNCHES = 0
+    mesh = make_mesh(world)
+    out = {"world": world, "backend": dist.get_backend(), "steps": {}}
+    for name, (make, batch_fn) in par_models(spec["sizes"]).items():
+        f64 = par_model_run(make, batch_fn, mesh, device, torch.float64, profile=False)
+        f32 = par_model_run(make, batch_fn, mesh, device, torch.float32, profile=True)
+        f32.pop("end")
+        if rank:
+            f64.pop("end")
+        out["steps"][name] = {"f32": f32, "f64": f64}
+    if spec.get("pipeline"):
+        torch.backends.cudnn.deterministic = True  # the reference run's setting
+        t0 = time.perf_counter()
+        outputs = pipeline.run_pipeline(spec["pipeline"], device=None if on_card else device)
+        out["pipeline"] = {"outputs": outputs, "wall_s": time.perf_counter() - t0}
+        torch.backends.cudnn.deterministic = False
+    if spec.get("serving"):
+        t0 = time.perf_counter()
+        out["serving"] = {"summary": serving.run(serving.build_parser().parse_args(
+            spec["serving"])), "wall_s": time.perf_counter() - t0}
+    out["k1"] = cuda_iir.LAUNCHES
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20 if on_card else float("nan")
+    torch.save(out, os.path.join(os.path.dirname(spec_path), f"rank{rank}.pt"))
+    distributed.barrier("worker:done")
+    dist.destroy_process_group()
+
+
+def par_launch(root: str, n: int, spec: dict) -> list:
+    """``python -m torch.distributed.run --standalone --nproc_per_node n
+    chip_smoke.py --parallel-worker`` with ``spec``; fails the run if the
+    launch exits non-zero or outlasts PAR_TIMEOUT_S (its processes are
+    then killed). Returns each rank's outputs and the launch's wall s."""
+    import signal
+
+    import torch
+
+    os.makedirs(root, exist_ok=True)
+    spec_path = os.path.join(root, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(n), os.path.abspath(__file__), "--parallel-worker",
+           spec_path]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=PAR_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{n}-rank launch outlasted {PAR_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(log[-6000:])
+        fail(f"{n}-rank launch exited {proc.returncode}")
+    return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+            for r in range(n)], wall
+
+
+def par_check_steps(card: str, label: str, outs: list, ref: dict) -> None:
+    """(b)/(e): each model's data-parallel steps by the rule against the
+    one-process ``ref``, equal weights and losses on every rank, and the
+    step's times."""
+    for name, want in ref.items():
+        got = outs[0]["steps"][name]
+        faults = par_faults(name, got["f32"], want["f32"], got["f64"], want["f64"])
+        check(not faults, f"{label}: {'; '.join(faults)}")
+        for dt in ("f32", "f64"):
+            sums = [o["steps"][name][dt]["checksum"] for o in outs]
+            check(len(set(sums)) == 1, f"{label} {name} {dt}: ranks hold different weights "
+                  f"{sums}")
+            check(all(o["steps"][name][dt]["losses"] == got[dt]["losses"] for o in outs),
+                  f"{label} {name} {dt}: ranks report different losses")
+        g, w = got["f32"], want["f32"]
+        print(f"{label} {name}: float32 losses {g['losses']} vs one process {w['losses']}; "
+              f"float64 weights within {got['f64']['worst'][1]:.2g} of one process's "
+              f"({got['f64']['worst'][0]}); step "
+              + ", ".join(f"rank {r} {o['steps'][name]['f32']['step_ms']:.2f} ms"
+                          for r, o in enumerate(outs))
+              + f" (one process {w['step_ms']:.2f} ms); the gradients' all-reduce alone "
+              f"{g['allreduce_ms']:.3f} ms; in the profiled step all-reduce "
+              f"{g['allreduce_host_ms']:.2f} ms host, {g['allreduce_device_ms']:.3f} ms "
+              f"device, device busy {g['busy_ms']:.2f} ms; peak "
+              + ", ".join(f"rank {r} {o['steps'][name]['f32']['peak_mib']:.0f}"
+                          for r, o in enumerate(outs))
+              + f" MiB (one process {w['peak_mib']:.0f}) [{card}]")
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """One CPU thread for torch, as each launched rank has
+    (``OMP_NUM_THREADS=1``): the seeded weights go through a CPU QR (the
+    LSTMs' orthogonal kernels, ``models.base.init_params``) whose last bits
+    follow the thread count, so the one-process references must draw them
+    as the ranks do."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def parallel_phase(card: str, device: str = "cuda", sizes: dict = PAR_FULL) -> None:
+    """(a)-(e) above; K1 must launch 0 times in every process.
+    ``device="cpu", sizes=PAR_REHEARSAL`` rehearses it on a CPU (gloo for
+    (a) too)."""
+    with one_torch_thread():
+        _parallel_phase(card, device, sizes)
+
+
+def _parallel_phase(card: str, device: str, sizes: dict) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from decode_tonal_langauge_tpu_torch import serving
+    from decode_tonal_langauge_tpu_torch.ops import cuda_iir
+    from decode_tonal_langauge_tpu_torch.parallel import distributed
+    from decode_tonal_langauge_tpu_torch.parallel.mesh import make_mesh
+
+    on_card = device == "cuda"
+    cuda_iir.LAUNCHES = 0
+    models = par_models(sizes)
+    with tempfile.TemporaryDirectory() as root:
+        # (a) one rank, NCCL on the card.
+        t0 = time.perf_counter()
+        distributed.initialize(f"file://{root}/store1", 1, 0, device=device)
+        backend = dist.get_backend()
+        mesh = make_mesh(1)
+        ref = {}
+        for name, (make, batch_fn) in models.items():
+            plain = par_model_run(make, batch_fn, None, device, torch.float32, profile=True)
+            meshed = par_model_run(make, batch_fn, mesh, device, torch.float32, profile=True)
+            same = plain["losses"] == meshed["losses"] and all(
+                torch.equal(plain["end"][k], meshed["end"][k]) for k in plain["end"])
+            check(same, f"(a) {name}: the one-rank {backend} layout's step differs from the "
+                  "plain step")
+            print(f"(a) {name}: one rank over {backend}, the layout's 2 steps equal the plain "
+                  f"steps bit for bit; step {meshed['step_ms']:.2f} ms with the layout, "
+                  f"{plain['step_ms']:.2f} ms plain, the gradients' all-reduce alone "
+                  f"{meshed['allreduce_ms']:.3f} ms, in the step "
+                  f"{meshed['allreduce_host_ms']:.2f} ms host / "
+                  f"{meshed['allreduce_device_ms']:.3f} ms device; busy "
+                  f"{meshed['busy_ms']:.2f} / {plain['busy_ms']:.2f} ms of the profiled step, "
+                  f"peak {meshed['peak_mib']:.0f} / {plain['peak_mib']:.0f} MiB [{card}]")
+            ref[name] = {"f32": plain, "f64": par_model_run(make, batch_fn, None, device,
+                                                            torch.float64, profile=False)}
+        dist.destroy_process_group()
+        print(f"(a) {time.perf_counter() - t0:.1f} s")
+
+        # The one-process references of (c) and (d).
+        t0 = time.perf_counter()
+        pipe_cfg = par_pipeline_world(f"{root}/one", sizes["pipe"])
+        torch.backends.cudnn.deterministic = True
+        try:
+            one_out, _, one_wall, _, k1 = run_recorded_pipeline(pipe_cfg, device)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        check(k1 == 0, "K1 launched during the one-process pipeline run")
+        one_rows, _ = par_pipeline_rows(one_out)
+        os.makedirs(f"{root}/serving_art")
+        art = write_artifacts(f"{root}/serving_art", np.random.default_rng(0))
+        serve_args = lambda out: cli_args(art["paths"], out, device, stream=False) + [  # noqa: E731
+            "--n_wavs", "0"]
+        serving.run(serving.build_parser().parse_args(serve_args(f"{root}/served_one")))
+        print(f"one-process references of (c) and (d): {time.perf_counter() - t0:.1f} s "
+              f"(pipeline {one_wall:.1f} s)")
+
+        # (b), (c), (d): two ranks sharing the card over gloo, one launch.
+        par_pipeline_world(f"{root}/two", sizes["pipe"])
+        spec = {"device": device, "backend": "gloo", "sizes": sizes,
+                "pipeline": par_pipeline_config(f"{root}/two", sizes["pipe"]),
+                "serving": serve_args(f"{root}/served_two") + ["--parallel_data", "2"]}
+        outs, wall = par_launch(f"{root}/launch2", 2, spec)
+        check([o["world"] for o in outs] == [2, 2] and outs[0]["backend"] == "gloo",
+              f"the 2-rank launch ran {[o['world'] for o in outs]} ranks over "
+              f"{outs[0]['backend']}")
+        print(f"(b)-(d) 2-rank launch over gloo on one card: {wall:.1f} s wall; peak over the "
+              "launch (float64 steps and the pipeline included) "
+              + ", ".join(f"rank {r} {o['peak_mib']:.0f} MiB" for r, o in enumerate(outs))
+              + f" [{card}]")
+        par_check_steps(card, "(b) 2 ranks, gloo", outs, ref)
+
+        two_rows, two_eval = par_pipeline_rows(outs[0]["pipeline"]["outputs"])
+        check(len(two_rows) == 6 and {r["subject"] for r in two_rows} == {"1", "2"},
+              f"(c) merged rows {[(r['subject'], r['target']) for r in two_rows]}")
+        check(two_rows == one_rows, "(c) the 2-rank pipeline's merged rows differ from the "
+              "one-process run's")
+        check(two_eval == two_rows, "(c) the 2-rank evaluation rows differ from training's")
+        print(f"(c) pipeline on 2 ranks, 2 subjects: {outs[0]['pipeline']['wall_s']:.1f} s "
+              f"(one process {one_wall:.1f} s); merged rows equal the one-process rows, "
+              "evaluation's equal training's; accuracy_mean "
+              + ", ".join(f"{r['subject']}/{r['target']} {r['accuracy_mean']}"
+                          for r in two_rows) + f" [{card}]")
+
+        preds = {k: read_csv(f"{root}/served_{k}/predictions.csv") for k in ("one", "two")}
+        check(preds["one"] == preds["two"], "(d) served ids differ from the one-process decode")
+        mels = {k: np.load(f"{root}/served_{k}/mels.npz")["mel"] for k in ("one", "two")}
+        err = float(np.abs(mels["one"] - mels["two"]).max())
+        check(mels["one"].shape == mels["two"].shape and err <= PAR_MEL_ATOL,
+              f"(d) served mels differ by {err}")
+        print(f"(d) serving --parallel_data 2: {len(preds['two'])} trials, ids equal to the "
+              f"one-process decode, mels max abs diff {err:.3g}; "
+              f"{outs[0]['serving']['wall_s']:.2f} s wall [{card}]")
+        k1 = cuda_iir.LAUNCHES + sum(o["k1"] for o in outs)
+
+        # (e) one rank per card over NCCL.
+        n_cards = torch.cuda.device_count() if on_card else 0
+        if n_cards >= 2:
+            k1 += nccl_ranks(card, f"{root}/launch{n_cards}", n_cards, sizes, ref)
+        else:
+            print(f"(e) skipped: {n_cards if on_card else 'no'} card visible, NCCL needs "
+                  "one rank per card")
+    print(f"K1 launches during the parallel phase: {k1}")
+    check(k1 == 0, "K1 launched during the parallel phase")
+
+
+def nccl_ranks(card: str, root: str, n: int, sizes: dict, ref: dict) -> int:
+    """(e): the models' steps on ``n`` ranks, one per card, over NCCL,
+    against the one-process ``ref``; returns the ranks' K1 launches."""
+    outs, wall = par_launch(root, n, {"device": "cuda", "backend": "nccl", "sizes": sizes})
+    check([o["world"] for o in outs] == [n] * n and outs[0]["backend"] == "nccl",
+          f"the {n}-rank launch ran {[o['world'] for o in outs]} ranks over "
+          f"{outs[0]['backend']}")
+    print(f"(e) {n}-rank launch over NCCL, one rank a card: {wall:.1f} s wall; peak over the "
+          "launch (float64 steps included) "
+          + ", ".join(f"rank {r} {o['peak_mib']:.0f} MiB" for r, o in enumerate(outs))
+          + f" [{card}]")
+    par_check_steps(card, f"(e) {n} ranks, NCCL", outs, ref)
+    return sum(o["k1"] for o in outs)
+
+
+def nccl_phase(card: str, sizes: dict = PAR_FULL) -> None:
+    """(e) alone, with its one-process references: for a machine with
+    several cards."""
+    import torch
+
+    n = torch.cuda.device_count()
+    check(n >= 2, f"nccl_phase needs two or more cards, {n} visible")
+
+    with one_torch_thread():
+        ref = {name: {"f32": par_model_run(make, batch_fn, None, "cuda", torch.float32, True),
+                      "f64": par_model_run(make, batch_fn, None, "cuda", torch.float64, False)}
+               for name, (make, batch_fn) in par_models(sizes).items()}
+    with tempfile.TemporaryDirectory() as root:
+        k1 = nccl_ranks(card, f"{root}/launch{n}", n, sizes, ref)
+    check(k1 == 0, "K1 launched during the NCCL ranks")
+
+
 def main() -> None:
     import torch
 
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--parallel-worker"]:  # a rank of the parallel phase
+        parallel_worker(sys.argv[2])
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a card")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from decode_tonal_langauge_tpu_torch import _build
     except ImportError as e:
@@ -2102,6 +2647,7 @@ def main() -> None:
     print(f"K1 launches during the serving phase: {cuda_iir.LAUNCHES}")
     timed(pipeline_phase, card)
     timed(bf16_phase, card)
+    timed(parallel_phase, card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

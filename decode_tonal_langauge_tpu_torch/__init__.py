@@ -44,6 +44,11 @@ three-pass scan (``csrc/iir_df2t.cu``, bound in ``ops/cuda_iir.py``).
 
 Entry points take ``device=None``, which means CUDA; they raise when no
 card is present and run on the CPU only when asked (``device="cpu"``).
+
+Several cards run one process each (``torchrun --nproc_per_node N``) over
+``torch.distributed`` (``parallel/``): the stages split their subjects
+and blocks between the ranks, and a ``parallel:`` mesh makes the trainers
+and serving data-parallel.
 """
 
 __version__ = "0.1.0"

@@ -8,8 +8,9 @@ matplotlib imports, and write a per-subject JSON into
 ``<sample dir base>__<md5[:6]>`` (the JAX stage's directory name), with
 the provenance ``config.yaml`` chained. The port's plugins run their
 ANOVA on ``device`` (``None``: the card; it raises without one); a user
-plugin is called as ``run(data, params)``. Subjects run in one process
-(the JAX stage's ``host_shard`` across processes is not ported).
+plugin is called as ``run(data, params)``. Several processes split the
+subjects (``parallel.distributed.host_shard``); each writes its subjects'
+JSONs, and rank 0 the ``config.yaml``.
 
     python -m decode_tonal_langauge_tpu_torch.channel_selection.main <config.yaml> [--device cpu]
 """
@@ -31,6 +32,7 @@ from ..config import (
     load_config,
     update_configuration,
 )
+from ..parallel.distributed import host_shard, process_index
 from ..runtime.device import DeviceLike, resolve_device
 
 
@@ -59,18 +61,19 @@ def run(config: dict, device: DeviceLike = None) -> str:
     if figures:
         os.makedirs(figure_root, exist_ok=True)
 
-    update_configuration(
-        output_path=os.path.join(output_dir, "config.yaml"),
-        previous_config_path=os.path.join(params.sample_dir, "config.yaml"),
-        new_module="channel_selection",
-        new_module_cfg=ch_cfg,
-    )
+    if process_index() == 0:
+        update_configuration(
+            output_path=os.path.join(output_dir, "config.yaml"),
+            previous_config_path=os.path.join(params.sample_dir, "config.yaml"),
+            new_module="channel_selection",
+            new_module_cfg=ch_cfg,
+        )
 
-    subject_files = [
+    subject_files = host_shard([
         f
         for f in sorted(os.listdir(params.sample_dir))
         if f.endswith(".npz") and f.startswith("subject_")
-    ]
+    ])
     for file_name in subject_files:
         subject_id = file_name.split("_")[1].split(".")[0]
         data = np.load(os.path.join(params.sample_dir, file_name))

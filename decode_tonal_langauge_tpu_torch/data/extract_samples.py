@@ -9,8 +9,9 @@ writes ``subject_<id>.npz`` into ``<recording base>__<md5[:6]>``, the
 JAX stage's directory name for the same config. A subject whose file
 exists is skipped unless ``overwrite``; ``config.yaml`` chains the
 upstream stage's provenance. Event snapshot figures are drawn where
-matplotlib imports. Subjects run in one process (the JAX stage's
-``host_shard`` across processes is not ported).
+matplotlib imports. Several processes split the subjects
+(``parallel.distributed.host_shard``); each writes its subjects' files,
+and rank 0 the ``config.yaml``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import List
 import numpy as np
 
 from ..config import dict_to_namespace, update_configuration
+from ..parallel.distributed import host_shard, process_index
 from ..runtime.device import DeviceLike, resolve_device
 from .text_align import extract_ecog_audio, handle_textgrids
 
@@ -45,14 +47,16 @@ def run(config: dict, device: DeviceLike = None) -> str:
     figure_root = os.path.join(output_dir, "figures")
     if figures:
         os.makedirs(figure_root, exist_ok=True)
-    update_configuration(
-        output_path=os.path.join(output_dir, "config.yaml"),
-        previous_config_path=os.path.join(params.recording_dir, "config.yaml"),
-        new_module="sample_collection",
-        new_module_cfg=collection_cfg,
-    )
+    if process_index() == 0:
+        update_configuration(
+            output_path=os.path.join(output_dir, "config.yaml"),
+            previous_config_path=os.path.join(params.recording_dir, "config.yaml"),
+            new_module="sample_collection",
+            new_module_cfg=collection_cfg,
+        )
 
-    for subject_id, subject_params in (params_config.get("subjects", {}) or {}).items():
+    subjects = host_shard(list((params_config.get("subjects", {}) or {}).items()))
+    for subject_id, subject_params in subjects:
         subject_path = os.path.join(params.recording_dir, f"subject_{subject_id}")
         if not os.path.exists(subject_path):
             print(f"No recording directory at {subject_path}; subject skipped.")

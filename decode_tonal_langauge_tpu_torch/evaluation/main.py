@@ -28,8 +28,10 @@ through ``ClassifierTrainer.predict``, in padded batches of the run's
 ``batch_size``, in eval mode and full f32: the trainer's own test
 predictions, so the rows equal the training stage's on the CPU and on the
 card. ``run(config, device=None)`` predicts on ``device`` (``None``: the
-card; it raises without one). One process evaluates every subject (the
-JAX stage's ``host_shard`` and per-process result merge are not ported).
+card; it raises without one). Several processes split the subjects
+(``parallel.distributed.host_shard``), each writes its result shard, and
+rank 0 merges them into ``results.csv``
+(``train_classifier.merge_process_results``).
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from ..config import (
 from ..data.sample_loading import ClassificationSampleHandler
 from ..data.splits import split_indices
 from ..models.factory import get_classifier_by_name
+from ..parallel.distributed import host_shard
 from ..runtime.checkpoint import load_checkpoint
 from ..runtime.device import DeviceLike, resolve_device
 from ..training.classifier_pipeline import (
@@ -56,6 +59,7 @@ from ..training.classifier_pipeline import (
     save_and_plot_results,
     target_model_params,
 )
+from ..training.train_classifier import merge_process_results
 from ..training.trainer import ClassifierTrainer
 from ..utils.metrics import (
     compute_classification_metrics,
@@ -350,7 +354,7 @@ def run(config: dict, device: DeviceLike = None) -> str:
     subject_ids = getattr(params, "subject_ids", None)
     allowed = {str(s) for s in subject_ids} if subject_ids else None
 
-    for subject_file in subject_files:
+    for subject_file in host_shard(subject_files):
         subject_id = subject_file.split("_")[1].split(".")[0]
         if allowed is not None and subject_id not in allowed:
             continue
@@ -363,4 +367,5 @@ def run(config: dict, device: DeviceLike = None) -> str:
                 channel_dir, f"subject_{subject_id}.json"
             )
         _evaluate_subject(sp, seeds)
+    merge_process_results(params.log_dir)
     return params.log_dir

@@ -58,8 +58,17 @@ def conv(layer: nn.Module, x: torch.Tensor, dtype: Optional[torch.dtype]) -> tor
 def dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
     """``layer`` applied to ``x`` in ``dtype``; None runs it as it is."""
     if dtype is None:
-        return layer(x)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+        return _linear(layer, x, layer.weight, layer.bias)
+    return _linear(layer, x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor, weight: torch.Tensor,
+            bias: torch.Tensor) -> torch.Tensor:
+    """``F.linear``; a column-parallel shard of the layer
+    (``parallel/train_step.py``) also gathers its outputs over the
+    ``model`` axis."""
+    sharded = getattr(layer, "sharded_linear", None)
+    return F.linear(x, weight, bias) if sharded is None else sharded(x, weight, bias)
 
 
 def at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -74,7 +83,7 @@ def head(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     argmax, and with it training's and evaluation's metrics of one
     checkpoint, would hang on rounding (JAX ``models/deep.py:87-94``)."""
     x = at_least_f32(x)
-    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+    return _linear(layer, x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 
 def get_activation(name: str, **kwargs) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -51,17 +51,38 @@ class BatchNorm1d(nn.BatchNorm1d):
     are computed in at least float32 and the running statistics stay
     float32, as Flax's ``force_float32_reductions``; the output is in the
     input's dtype (the model's compute dtype). The state dict keeps
-    ``nn.BatchNorm1d``'s keys."""
+    ``nn.BatchNorm1d``'s keys.
+
+    Under data parallelism ``group`` is the ``data`` axis's process group
+    (``parallel/mesh.py``): the train-mode statistics are those of the
+    global batch, as XLA computes them over a sharded batch axis. Each
+    rank sums x, x^2 and its count, and a differentiable all-reduce adds
+    them over the group, so the backward sees the global statistics too."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.01) -> None:
         super().__init__(num_features, eps=eps, momentum=momentum)
+        self.group = None
+
+    def _global_stats(self, x: torch.Tensor):
+        from torch.distributed.nn.functional import all_reduce
+
+        c = self.num_features
+        sums = all_reduce(torch.cat([
+            x.sum(dim=(0, 2)), (x * x).sum(dim=(0, 2)),
+            x.new_full((1,), x.shape[0] * x.shape[2]),
+        ]), group=self.group)
+        mean = sums[:c] / sums[-1]
+        return mean, (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype, x = x.dtype, at_least_f32(x)
         if self.training:
-            mean = x.mean(dim=(0, 2))
-            var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
+            if self.group is not None:
+                mean, var = self._global_stats(x)
+            else:
+                mean = x.mean(dim=(0, 2))
+                var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 keep = 1.0 - self.momentum
                 self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)

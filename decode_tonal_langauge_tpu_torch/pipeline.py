@@ -8,11 +8,20 @@ sections. The device is resolved once (``None``: the card; it raises
 without one) and passed to every stage function that takes ``device``; a
 user module's function is called with the config alone.
 
+Under a launcher (``torchrun --nproc_per_node N -m
+decode_tonal_langauge_tpu_torch config.yaml``) the process group is
+joined first, before anything touches the card
+(``parallel.distributed.initialize``), and every rank waits for the others
+after each stage, since a stage reads the files the previous one wrote.
+The stages split their subjects or blocks between the ranks, and the
+``parallel:`` section makes the training stage data-parallel
+(``parallel/mesh.py``).
+
 A top-level ``profiling`` section: ``trace_dir`` runs every stage inside
 a ``torch.profiler`` trace (a Chrome trace file per stage), ``timing:
 true`` (the default) prints each stage's wall time at the end. The
-``parallel`` and ``compilation_cache`` sections are accepted with a note:
-the port runs one process on one device and compiles nothing.
+``compilation_cache`` section is accepted with a note: the port compiles
+nothing.
 
     python -m decode_tonal_langauge_tpu_torch.pipeline <config.yaml> [--device cpu]
 """
@@ -25,6 +34,7 @@ from typing import Any, Dict
 
 from . import registry
 from .config import load_config
+from .parallel.distributed import barrier, initialize, process_count, process_index
 from .runtime.device import DeviceLike, resolve_device
 from .runtime.profiling import StageTimer, trace
 
@@ -41,6 +51,8 @@ STAGES = [
 def run_pipeline(config_path_or_dict, device: DeviceLike = None) -> Dict[str, str]:
     """Execute the pipeline stages of a config file or dict; returns the
     map of stage -> output directory."""
+    if initialize(device=device):
+        print(f"multi-process runtime: process {process_index()} of {process_count()}")
     device = resolve_device(device)
     if isinstance(config_path_or_dict, str):
         config: Dict[str, Any] = load_config(config_path_or_dict)
@@ -48,10 +60,8 @@ def run_pipeline(config_path_or_dict, device: DeviceLike = None) -> Dict[str, st
         config = config_path_or_dict
     stage_outputs: Dict[str, str] = {}
 
-    for key in ("parallel", "compilation_cache"):
-        if config.get(key) not in (None, False):
-            print(f"{key}: accepted, but the port runs one process on one "
-                  "device and compiles nothing; ignoring")
+    if config.get("compilation_cache") not in (None, False):
+        print("compilation_cache: accepted, but the port compiles nothing; ignoring")
 
     profiling_cfg = config.get("profiling") or {}
     trace_dir = profiling_cfg.get("trace_dir")
@@ -88,6 +98,7 @@ def run_pipeline(config_path_or_dict, device: DeviceLike = None) -> Dict[str, st
             result = func(config, **kwargs)
         if isinstance(result, str):
             stage_outputs[stage] = result
+        barrier(f"stage:{stage}")
 
     if timer.spans and profiling_cfg.get("timing", True):
         print("----------- Stage timing -----------")

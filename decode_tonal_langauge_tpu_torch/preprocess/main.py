@@ -1,8 +1,12 @@
 """Preprocess stage entry.
 
 ``run(config, device=None) -> setup_dir`` resolves the pipeline, IO and
-preprocessor plugins from the config and runs the pipeline on one
-device (``None``: the card; it raises without one).
+preprocessor plugins from the config and runs the pipeline on ``device``
+(``None``: the card, the rank's own under a process group; it raises
+without one). Several processes split the blocks between them
+(``pipelines/subject_block.py``); with a ``parallel:`` mesh a pipeline
+plugin that takes ``devices`` gets this rank's card, as the JAX stage
+passes each process its local devices.
 
     python -m decode_tonal_langauge_tpu_torch.preprocess.main <config.yaml> [--device cpu]
 """
@@ -14,6 +18,7 @@ import inspect
 
 from .. import registry
 from ..config import dict_to_namespace, load_config
+from ..parallel.mesh import mesh_from_config
 from ..runtime.device import DeviceLike, resolve_device
 
 
@@ -35,16 +40,20 @@ def run(config: dict, device: DeviceLike = None) -> str:
     pipeline_params = dict_to_namespace(pipeline_cfg.get("params", {}))
     io_params = dict_to_namespace(io_cfg.get("params", {}))
 
-    if config.get("parallel"):
-        # Blocks are not spread over devices in the port (yet).
-        print(
-            "parallel: set but the pipeline plugin takes no `devices` "
-            "argument; preprocessing single-device"
-        )
     # A custom pipeline plugin may have the reference's five-argument run.
     kwargs = {}
-    if "device" in inspect.signature(pipeline_module.run).parameters:
+    accepted = inspect.signature(pipeline_module.run).parameters
+    if "device" in accepted:
         kwargs["device"] = device
+    if mesh_from_config(config.get("parallel")) is not None:
+        if "devices" in accepted:
+            kwargs["devices"] = [device]
+            print(f"preprocess on {device} (blocks split between the ranks)")
+        else:
+            print(
+                "parallel: set but the pipeline plugin takes no `devices` "
+                "argument; preprocessing single-device"
+            )
 
     return pipeline_module.run(
         pipeline_params, io_params, io_module, preprocessor_module,

@@ -5,8 +5,9 @@ iterates ``HS<subject>-B<block>`` directories under the IO root, loads
 each block through the IO backend, preprocesses every modality on one
 device, and saves the outputs into a content-hash-named setup directory
 (``<step names>_<md5(steps)[:6]>``) with a provenance ``config.yaml``.
-One process takes every block; a one-thread writer saves a block while
-the next one loads and computes.
+Each process takes its round-robin share of the blocks
+(``parallel.distributed.host_shard``; one process takes them all); a
+one-thread writer saves a block while the next one loads and computes.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional
 
 from ...config import dict_to_namespace, namespace_to_dict
+from ...parallel.distributed import host_shard
 from ...runtime.device import DeviceLike
 
 # Block saves in flight before the loop waits for the oldest: one being
@@ -67,9 +69,11 @@ def generate_setup_name(modalities_cfg: Dict[str, Any]) -> str:
 
 
 def run(pipeline_params, io_params, io_module, preprocessor_module,
-        modalities_cfg, device: DeviceLike = None):
-    """Preprocess every block on ``device`` (``None``: the card) and
-    return the setup directory."""
+        modalities_cfg, device: DeviceLike = None, devices=None):
+    """Preprocess this process's blocks on ``device`` (``None``: the card)
+    and return the setup directory. ``devices``, a list of devices, runs
+    block i on ``devices[i % len(devices)]`` instead (the preprocess stage
+    passes a rank its one card under a ``parallel:`` mesh)."""
     import yaml
 
     setup_name = generate_setup_name(modalities_cfg)
@@ -93,24 +97,24 @@ def run(pipeline_params, io_params, io_module, preprocessor_module,
             f,
         )
 
-    blocks = list(
+    blocks = host_shard(list(
         iter_blocks(
             io_params.root_dir,
             pipeline_params.subject_dirs,
             getattr(pipeline_params, "subject_ids", None),
         )
-    )
+    ))
 
     # A custom preprocessor plugin may take no `device` argument.
-    kwargs = {}
-    if "device" in inspect.signature(preprocessor_module.preprocess_modalities).parameters:
-        kwargs["device"] = device
-    elif device is not None:
-        print(f"preprocessor plugin takes no `device` argument; {device} not passed")
+    takes_device = "device" in inspect.signature(
+        preprocessor_module.preprocess_modalities).parameters
+    if not takes_device and (device is not None or devices):
+        print(f"preprocessor plugin takes no `device` argument; {devices or device} "
+              "not passed")
 
     pending = []
     with ThreadPoolExecutor(max_workers=1) as writer:
-        for subject_id, block_id, block_path in blocks:
+        for i, (subject_id, block_id, block_path) in enumerate(blocks):
             print(f"Processing block {block_id} of subject {subject_id}...")
 
             data_dict = io_module.load_block(block_path)
@@ -134,6 +138,9 @@ def run(pipeline_params, io_params, io_module, preprocessor_module,
                 )
                 os.makedirs(block_figure_dir, exist_ok=True)
 
+            kwargs = {}
+            if takes_device:
+                kwargs["device"] = devices[i % len(devices)] if devices else device
             preprocessor_module.preprocess_modalities(
                 data_dict, modalities_cfg, block_params,
                 figure_dir=block_figure_dir, **kwargs,

@@ -3,7 +3,9 @@
 The counterpart of ``decode_tonal_langauge_tpu/runtime/platform.py``.
 Entry points take ``device=None``, which means the CUDA card: when there
 is none they raise instead of quietly running on the CPU. The CPU runs
-only when a caller asks for it (``device="cpu"``), as the tests do.
+only when a caller asks for it (``device="cpu"``), as the tests do. Under
+a process group (``parallel/distributed.py``) the card is the rank's own,
+``cuda:{LOCAL_RANK}``, which ``initialize`` made the current device.
 """
 
 from __future__ import annotations
@@ -17,13 +19,16 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda`` (raises without a card); else as given."""
+    """``None`` -> ``cuda`` (raises without a card), the rank's card under
+    a process group; else as given."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run on "
                 "the CPU explicitly"
             )
+        if torch.distributed.is_available() and torch.distributed.is_initialized():
+            return torch.device("cuda", torch.cuda.current_device())
         return torch.device("cuda")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -33,6 +33,13 @@ length). Writes
 the first N ``decoded_*.wav`` and ``summary.json``. When the epoch npz
 carries ``audio``, the summary adds the decoded mels' MCD and Pearson r
 against the true audio's mels.
+
+``--parallel_data N`` decodes over N ranks, one per card (``torchrun
+--nproc_per_node N -m decode_tonal_langauge_tpu_torch.serving ...``,
+``parallel/``): the batch is padded to a multiple of N with repeats of its
+last row, each rank decodes its slice, the slices are gathered and the
+padding stripped, so every rank holds the whole result; rank 0 writes the
+files.
 """
 
 from __future__ import annotations
@@ -51,6 +58,8 @@ from torch import nn
 from .data.utils import select_non_discriminative_channels, tone_dynamics_table
 from .models.factory import build_synthesis_model, get_classifier_by_name
 from .ops.framing import extract_epochs
+from .parallel.distributed import initialize, process_index
+from .parallel.mesh import DataParallelLayout, fetch_global, mesh_from_config
 from .runtime.checkpoint import load_checkpoint, save_checkpoint  # noqa: F401
 from .runtime.device import DeviceLike, exact_f32, resolve_device
 
@@ -62,7 +71,9 @@ class TonalDecoder:
 
     ``tone_model``, ``syllable_model`` and ``synthesis_model`` are the
     port's modules with their weights loaded; scalers are ``(mu, sd)``
-    pairs. Everything moves to ``device`` (``None`` means CUDA).
+    pairs. Everything moves to ``device`` (``None`` means CUDA). With a
+    ``mesh`` the decode batch is split over its ``data`` axis (module
+    docstring).
     """
 
     def __init__(
@@ -74,8 +85,11 @@ class TonalDecoder:
         tone_scaler=None,
         syllable_scaler=None,
         device: DeviceLike = None,
+        mesh=None,
     ) -> None:
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._layout = DataParallelLayout(mesh)
         put = lambda m: m.to(self.device).eval() if m is not None else None  # noqa: E731
         self.tone_model = put(tone_model)
         self.syllable_model = put(syllable_model)
@@ -121,7 +135,8 @@ class TonalDecoder:
         predicted tone and syllable ids, class probabilities and (with a
         synthesizer) the flattened mels, as numpy arrays. Channel subsets
         are sorted, as the training stage lays out weights and scalers."""
-        if ecog_samples.shape[0] == 0:
+        n = ecog_samples.shape[0]
+        if n == 0:
             raise ValueError(
                 "decode() received zero trials — the ecog array in the "
                 "sample npz is empty."
@@ -129,6 +144,10 @@ class TonalDecoder:
         if not isinstance(ecog_samples, torch.Tensor):  # a copy: numpy may be read-only
             ecog_samples = torch.tensor(np.asarray(ecog_samples, dtype=np.float32))
         x = ecog_samples.to(device=self.device, dtype=torch.float32)
+        pad = self._layout.round_batch(n) - n
+        if pad:
+            x = torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
+        x = self._layout.shard(x)
         idx = lambda ch: torch.as_tensor(sorted(ch), dtype=torch.long,  # noqa: E731
                                          device=self.device)
         non = select_non_discriminative_channels(channel_selections, _DISCRIMINATIVE)
@@ -137,14 +156,15 @@ class TonalDecoder:
             x[:, idx(channel_selections["syllable_discriminative"])],
             x[:, idx(non)],
         )
+        fetch = lambda t: fetch_global(self.mesh, t)[:n]  # noqa: E731
         out = {
-            "tone": tones.cpu().numpy(),
-            "syllable": sylls.cpu().numpy(),
-            "tone_probs": tone_probs.cpu().numpy(),
-            "syllable_probs": syll_probs.cpu().numpy(),
+            "tone": fetch(tones),
+            "syllable": fetch(sylls),
+            "tone_probs": fetch(tone_probs),
+            "syllable_probs": fetch(syll_probs),
         }
         if mel is not None:
-            out["mel"] = mel.cpu().numpy()
+            out["mel"] = fetch(mel)
         return out
 
     def decode_stream(
@@ -240,6 +260,7 @@ def load_decoder(
     syllable_model_kwargs: Optional[Dict[str, Any]] = None,
     synthesis_dtype: Any = "float32",
     device: DeviceLike = None,
+    mesh=None,
 ) -> TonalDecoder:
     """Rebuild the frozen models from checkpoints and wire a decoder. The
     classifiers' compute dtype comes in their kwargs (``dtype``), the
@@ -289,7 +310,7 @@ def load_decoder(
     return TonalDecoder(
         tone_model, syll_model, dataset_config["tone_dynamic_mapping"],
         synthesis_model=synthesis_model, tone_scaler=tone_scaler,
-        syllable_scaler=syll_scaler, device=device,
+        syllable_scaler=syll_scaler, device=device, mesh=mesh,
     )
 
 
@@ -353,8 +374,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; 'cpu' runs on the CPU).")
     p.add_argument("--parallel_data", type=int, default=None,
-                   help="Accepted for the JAX CLI's sake; the port decodes "
-                        "on one device.")
+                   help="Split the decode batch over this many ranks, one "
+                        "per card, launched with torchrun.")
     p.add_argument("--no_compilation_cache", action="store_true",
                    help="Accepted for the JAX CLI's sake; the port compiles "
                         "nothing.")
@@ -485,13 +506,11 @@ def _configure_from_training_dir(params: argparse.Namespace) -> Dict[str, Any]:
 
 
 def run(params: argparse.Namespace) -> Dict[str, Any]:
-    given = [flag for flag, on in (
-        ("--parallel_data", getattr(params, "parallel_data", None)),
-        ("--no_compilation_cache", getattr(params, "no_compilation_cache", False)),
-    ) if on]
-    if given:
-        print(f"{', '.join(given)}: accepted, but the port decodes on one device "
-              "and compiles nothing; ignoring")
+    initialize(device=params.device)
+    if getattr(params, "no_compilation_cache", False):
+        print("--no_compilation_cache: accepted, but the port compiles nothing; ignoring")
+    pd = getattr(params, "parallel_data", None)
+    mesh = mesh_from_config({"data": pd} if pd else None)
 
     provenance_dataset_config = None
     if getattr(params, "training_dir", None):
@@ -582,6 +601,7 @@ def run(params: argparse.Namespace) -> Dict[str, Any]:
         syllable_model_kwargs=_parse_model_kwargs(params.syllable_model_kwargs),
         synthesis_dtype=params.synthesis_dtype,
         device=params.device,
+        mesh=mesh,
     )
     if streaming:
         return _run_stream(params, decoder, recording, stream_sf, window, hop,
@@ -589,6 +609,11 @@ def run(params: argparse.Namespace) -> Dict[str, Any]:
 
     ecog = dataset["ecog"]
     out = decoder.decode(ecog, channel_selections)
+    # Every rank: under a mesh each decode is collective.
+    latency = (_measure_latency(decoder, ecog, channel_selections)
+               if params.benchmark else None)
+    if process_index() != 0:
+        return {"n_trials": int(ecog.shape[0])}
     os.makedirs(params.output_dir, exist_ok=True)
     summary: Dict[str, Any] = {"n_trials": int(ecog.shape[0])}
 
@@ -621,10 +646,8 @@ def run(params: argparse.Namespace) -> Dict[str, Any]:
         summary["n_wavs"] = _write_wavs(params, decoder, out["mel"], mel_kwargs,
                                         "decoded_{}.wav")
 
-    if params.benchmark:
-        summary["trial_latency_s"] = _measure_latency(
-            decoder, ecog, channel_selections
-        )
+    if latency is not None:
+        summary["trial_latency_s"] = latency
     return _write_summary(params.output_dir, summary)
 
 
@@ -684,6 +707,8 @@ def _run_stream(params, decoder, recording, sf, window, hop,
     """Streaming decode: windows.csv + events.csv + mels/wavs + summary."""
     out = decoder.decode_stream(recording, channel_selections, window, hop)
     starts = out["window_start"]
+    if process_index() != 0:
+        return {"n_windows": len(starts)}
     os.makedirs(params.output_dir, exist_ok=True)
     rows = [
         {

@@ -12,8 +12,10 @@ Counterpart of ``decode_tonal_langauge_tpu/training/classifier_pipeline.py``:
   and, where matplotlib imports, figures.
 
 The results CSV has the JAX package's columns and row order, written with
-the ``csv`` module. One process writes it (the per-process result shards
-of a multi-host run are not ported).
+the ``csv`` module. With more than one process each writes its own shard,
+``results.process<k>.csv`` (concurrent appends to one file can interleave
+mid-row), which ``train_classifier.merge_process_results`` folds into
+``results.csv`` at the end of the stage.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import numpy as np
 from ..data.sample_loading import ClassificationSampleHandler
 from ..data.splits import split_indices
 from ..models.factory import get_classifier_by_name
+from ..parallel.distributed import process_count, process_index
 from ..utils.metrics import (
     compute_classification_metrics,
     compute_classification_metrics_joint,
@@ -52,6 +55,7 @@ def _make_trainer(params: Namespace, model, n_classes: int, seed: int, log_dir):
         verbose=getattr(params, "verbose", 1) > 1,
         moment_dtype=getattr(params, "moment_dtype", None),
         device=getattr(params, "device", None),
+        mesh=getattr(params, "mesh", None),
     )
 
 
@@ -512,7 +516,9 @@ def save_and_plot_results(
     for target, metrics_dict in result_info.get("individual_metrics", {}).items():
         rows.append(_build_row(metrics_dict, str(target)))
 
-    result_path = os.path.join(params.log_dir, "results.csv")
+    name = (f"results.process{process_index()}.csv" if process_count() > 1
+            else "results.csv")
+    result_path = os.path.join(params.log_dir, name)
     _append_rows(result_path, rows)
     print(f"Results saved to {result_path}")
 

@@ -10,6 +10,12 @@ holds) is met by construction, since one seed is on the device at a
 time. Fitting the seeds as one batched computation
 (``torch.func.vmap`` over ``functional_call`` and the LSTM's
 ``autograd.Function``) is not done yet.
+
+Under a ``data`` mesh the seeds stay a loop and each seed's fit is
+data-parallel over the ranks (``ClassifierTrainer(mesh=...)``); the JAX
+package instead shards the stacked seed axis over the devices (its
+``seed_parallel.py``). The rows of each seed are equal either way: a
+layout never changes a fit's result beyond the f32 order of its sums.
 """
 
 from __future__ import annotations
@@ -79,9 +85,9 @@ class SeedParallelTrainer:
     """Fits ``len(seeds)`` independent classifiers of one architecture.
 
     ``model`` is copied for each seed, and the copy is initialised from
-    that seed (``ClassifierTrainer.init``). The keys of
-    :data:`~.trainer.JAX_ONLY_KEYS` (``seed_chunk`` among them) are
-    accepted and change nothing."""
+    that seed (``ClassifierTrainer.init``); ``mesh`` makes each seed's fit
+    data-parallel. The keys of :data:`~.trainer.JAX_ONLY_KEYS`
+    (``seed_chunk`` among them) are accepted and change nothing."""
 
     def __init__(
         self,
@@ -96,6 +102,7 @@ class SeedParallelTrainer:
         verbose: bool = False,
         moment_dtype: Optional[str] = None,
         device: DeviceLike = None,
+        mesh=None,
         **jax_only,
     ):
         accept_jax_only(jax_only)
@@ -106,7 +113,7 @@ class SeedParallelTrainer:
             n_classes=n_classes, learning_rate=learning_rate,
             weight_decay=weight_decay, batch_size=batch_size,
             max_epochs=max_epochs, patience=patience, verbose=verbose,
-            moment_dtype=moment_dtype, device=device,
+            moment_dtype=moment_dtype, device=device, mesh=mesh,
         )
 
     def fit_eval(

@@ -29,8 +29,18 @@ The JAX trainer draws its permutations and dropout keys from one
 torch draws neither, so the two agree step for step given the same
 weights and batch order (the tests feed both). The classifiers are port
 modules with their weights loaded, so the JAX constructor's
-``tone_variables`` / ``syllable_variables`` have no counterpart here. One
-device: a ``mesh`` is accepted and ignored (``trainer.accept_jax_only``).
+``tone_variables`` / ``syllable_variables`` have no counterpart here.
+
+With a ``mesh`` the fit is data-parallel over its ``data`` axis, as the
+classifier trainer's (``trainer.py``, ``parallel/mesh.py``): the batch
+rounds up to a multiple of the axis, every rank computes the frozen
+dynamics of the whole padded set once per fit and takes its slice of each
+batch, the L1 loss and the MCD are the slice's sums over the global
+batch's weight, and one all-reduce adds them with the gradients.
+SynthesisLite's batch norm uses the global batch's statistics and dropout
+the global batch's masks. :meth:`SynthesisTrainer.evaluate` runs the whole
+test set on every rank (no cross-sample operation in eval mode), and rank
+0 writes the train state.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from torch import nn
 from ..data.utils import tone_dynamics_table
 from ..models.base import init_params
 from ..ops.dropout import set_dropout_generator
+from ..parallel.mesh import DataParallelLayout
 from ..runtime.device import DeviceLike, exact_f32, resolve_device
 from .optim import NAdam
 from .trainer import accept_jax_only
@@ -63,10 +74,13 @@ def compute_mcd(true_mcc: np.ndarray, pred_mcc: np.ndarray) -> float:
     return float(np.mean(10.0 / np.log(10.0) * np.sqrt(2.0 * sq)))
 
 
-def _mcd(true_mcc: torch.Tensor, pred_mcc: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The weighted MCD of one batch (padding rows weigh 0)."""
+def _mcd(true_mcc: torch.Tensor, pred_mcc: torch.Tensor, w: torch.Tensor,
+         w_total: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The weighted MCD of one batch (padding rows weigh 0); ``w_total``
+    is the global batch's ``sum(w)`` when the rows are one rank's slice."""
     vals = _DB * torch.sqrt(2.0 * ((true_mcc - pred_mcc) ** 2).sum(dim=1))
-    return (vals * w).sum() / w.sum().clamp_min(1.0)
+    total = w.sum() if w_total is None else w_total
+    return (vals * w).sum() / total.clamp_min(1.0)
 
 
 def _with_output_bias(model: nn.Module, target_mean) -> nn.Module:
@@ -115,7 +129,8 @@ class SynthesisTrainer:
     modules; the classifiers carry their trained weights, and
     ``tone_scaler`` / ``syllable_scaler`` are the optional ``(mu, sd)``
     their inputs were standardised with. ``device=None`` means the CUDA
-    card (it raises without one); the CPU runs only when asked for."""
+    card (it raises without one); the CPU runs only when asked for.
+    ``mesh`` makes the fit data-parallel (module docstring)."""
 
     def __init__(
         self,
@@ -134,10 +149,13 @@ class SynthesisTrainer:
         syllable_scaler=None,
         moment_dtype: Optional[str] = None,
         device: DeviceLike = None,
+        mesh=None,
         **jax_only,
     ) -> None:
         accept_jax_only(jax_only)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self._layout = DataParallelLayout(mesh)
         self.model = synthesis_model
         self.tone_model = tone_model.to(self.device).eval()
         self.syllable_model = syllable_model.to(self.device).eval()
@@ -152,6 +170,7 @@ class SynthesisTrainer:
             learning_rate=learning_rate, beta_1=beta_1, beta_2=beta_2, epsilon=epsilon,
             schedule_decay=schedule_decay, verbose=verbose, tone_scaler=tone_scaler,
             syllable_scaler=syllable_scaler, moment_dtype=moment_dtype, device=self.device,
+            mesh=mesh,
         )
         self.optimizer: Optional[NAdam] = None
         self._weights: List[torch.Tensor] = []
@@ -197,6 +216,7 @@ class SynthesisTrainer:
         self._perm_gen = torch.Generator().manual_seed(self.seed)
         self._dropout_gen = torch.Generator(device=self.device).manual_seed(self.seed)
         set_dropout_generator(self.model, self._dropout_gen)
+        self._layout.attach(self.model)
 
     @property
     def params(self) -> Optional[Dict[str, torch.Tensor]]:
@@ -246,31 +266,38 @@ class SynthesisTrainer:
                            torch.as_tensor(w, device=self.device))
 
     def train_step(self, x_non: torch.Tensor, labels: torch.Tensor, targets: torch.Tensor,
-                   w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One NAdam step on a weighted batch on the device; returns the
-        (loss, MCD) tensors. The loss is the weighted mean over samples of
-        ``mean |out - target|`` over the mel axis. cuDNN runs its
-        deterministic algorithms, so that a resumed fit equals the
-        uninterrupted one on the card too."""
+                   w: torch.Tensor, w_total: Optional[torch.Tensor] = None,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One NAdam step on a weighted batch (this rank's rows of it under
+        a mesh, with the global batch's ``sum(w)`` as ``w_total``) on the
+        device; returns the global batch's (loss, MCD) tensors. The loss
+        is the weighted mean over samples of ``mean |out - target|`` over
+        the mel axis. cuDNN runs its deterministic algorithms, so that a
+        resumed fit equals the uninterrupted one on the card too."""
         self.model.train()
         with exact_f32(deterministic=True):
             out = self.model(x_non, labels)
             l1 = (out - targets).abs().mean(dim=1)
-            loss = (l1 * w).sum() / w.sum().clamp_min(1.0)
+            total = w.sum() if w_total is None else w_total
+            loss = (l1 * w).sum() / total.clamp_min(1.0)
             grads = torch.autograd.grad(loss, self._weights)
+            with torch.no_grad():
+                mcd = _mcd(targets, out, w, total)
+            *grads, loss, mcd = self._layout.reduce_sum([*grads, loss.detach(), mcd])
             self.optimizer.step(grads)
-        with torch.no_grad():
-            mcd = _mcd(targets, out, w)
-        return loss.detach(), mcd
+        return loss, mcd
 
     def _epoch(self, perm: torch.Tensor, data: _DeviceData, batch_size: int) -> torch.Tensor:
         """One epoch in the order ``perm`` (a permutation of the padded
         set, on the device); returns the device tensor (mean batch loss,
         mean batch MCD)."""
         n_batches = data.x.shape[0] // batch_size
-        batches = [t[perm].reshape((n_batches, batch_size) + t.shape[1:])
-                   for t in (data.x, data.labels, data.y, data.w)]
-        steps = [self.train_step(*(t[b] for t in batches)) for b in range(n_batches)]
+        idx = perm.reshape(n_batches, batch_size)
+        totals = data.w[idx].sum(dim=1)
+        (idx,) = self._layout.place_stacks(idx)
+        batches = [t[idx] for t in (data.x, data.labels, data.y, data.w)]
+        steps = [self.train_step(*(t[b] for t in batches), totals[b])
+                 for b in range(n_batches)]
         losses, mcds = zip(*steps)
         return torch.stack([torch.stack(losses).mean(), torch.stack(mcds).mean()])
 
@@ -336,12 +363,14 @@ class SynthesisTrainer:
         if self.optimizer is None:
             self.init(train_data[0], self.dynamics_table.shape[1], target_mean=target_mean)
         self._reset_generators()
+        batch_size = self._layout.round_batch(batch_size)
         epochs_done = 0
         history_arr = np.zeros((0, 2), dtype=np.float32)
         if checkpoint_dir and resume:
             restored = self._restore_train_state(checkpoint_dir)
             if restored is not None:
                 epochs_done, history_arr = restored
+        self._layout.replicate_tree(self.model)
 
         data = self._device_data(train_data, batch_size)
         n = data.x.shape[0]
@@ -354,8 +383,9 @@ class SynthesisTrainer:
             chunk = torch.stack(rows).cpu().numpy().astype(np.float32)  # the segment's one read
             history_arr = np.concatenate([history_arr, chunk])
             epochs_done += seg
-            if checkpoint_dir:
+            if checkpoint_dir and self._layout.writer:
                 self._save_train_state(checkpoint_dir, epochs_done, history_arr)
+            self._layout.barrier("train:train_state")
 
         history = [(float(loss), float(mcd)) for loss, mcd in history_arr]
         if verbose:
@@ -370,7 +400,9 @@ class SynthesisTrainer:
         batch_size: int = 8,
     ) -> Tuple[float, np.ndarray, np.ndarray]:
         """Returns (mcd, recon_mels, origin_mels). The MCD is the mean of
-        the per-batch weighted MCDs, padded batch included, as JAX's."""
+        the per-batch weighted MCDs, padded batch included, as JAX's (whose
+        batch rounds up to the ``data`` axis here too)."""
+        batch_size = self._layout.round_batch(batch_size)
         data = self._device_data(test_data, batch_size)
         n_batches = data.x.shape[0] // batch_size
         self.model.eval()

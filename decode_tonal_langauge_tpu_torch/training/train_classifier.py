@@ -8,15 +8,32 @@ the evaluation section into one params namespace,
 discovers ``subject_*.npz`` sample files, derives the hashed experiment
 log dir (the JAX stage's name for the same config) with merged provenance
 ``config.yaml``, draws the per-repeat seeds from the base seed, and runs
-the separate/joint regime per subject on one device (``None``: the card;
-it raises without one).
+the separate/joint regime per subject on ``device`` (``None``: the card,
+the rank's own under a process group; it raises without one).
+
+Several processes (``torchrun --nproc_per_node N``, see
+``parallel/distributed.py``) run in one of the JAX stage's two regimes:
+
+- with a ``parallel:`` mesh every rank runs every subject in lockstep,
+  each fit data-parallel over the ranks, and ranks other than 0 write
+  their per-subject files under ``log_dir/.process<k>``; every rank
+  returns rank 0's ``log_dir``, so the next stage reads its files;
+- without one, :func:`~..parallel.distributed.host_shard` splits the
+  subjects between the ranks.
+
+Each process appends its rows to ``results.process<k>.csv``; after a
+barrier rank 0 folds the shards into ``results.csv``
+(:func:`merge_process_results`).
 
     python -m decode_tonal_langauge_tpu_torch.training.train_classifier <config.yaml> [--device cpu]
+    torchrun --nproc_per_node N -m decode_tonal_langauge_tpu_torch.training.train_classifier <config.yaml>
 """
 
 from __future__ import annotations
 
 import argparse
+import csv
+import glob
 import os
 from argparse import Namespace
 
@@ -27,9 +44,18 @@ from ..config import (
     namespace_training_params,
     save_config,
 )
+from ..parallel.distributed import (
+    barrier,
+    host_shard,
+    initialize,
+    process_count,
+    process_index,
+)
+from ..parallel.mesh import mesh_from_config
 from ..runtime.device import DeviceLike, resolve_device
 from ..utils.seeding import seed_stream
 from .classifier_pipeline import (
+    _append_rows,
     save_and_plot_results,
     train_joint_targets,
     train_separate_targets,
@@ -56,8 +82,11 @@ def run(config: dict, device: DeviceLike = None) -> str:
         combined_cfg["aggregates"] = combined_cfg["metric_aggregates"]
     params = namespace_training_params(combined_cfg)
     params.device = device
-    if config.get("parallel"):
-        print("parallel: set, but the port's training stage runs on one device")
+    # The mesh stays out of combined_cfg: a layout never changes results,
+    # so it must not change the experiment hash.
+    params.mesh = mesh_from_config(config.get("parallel"))
+    if params.mesh is not None:
+        print(f"training on mesh {dict(zip(params.mesh.mesh_dim_names, params.mesh.shape))}")
 
     sample_dir = getattr(params, "sample_dir", "data/samples")
     if not os.path.exists(sample_dir):
@@ -97,10 +126,19 @@ def run(config: dict, device: DeviceLike = None) -> str:
         "dataset": dataset_cfg,
         "evaluation": evaluation_cfg,
     })
-    save_config(os.path.join(params.log_dir, "config.yaml"), merged_cfg)
+    if process_index() == 0:
+        save_config(os.path.join(params.log_dir, "config.yaml"), merged_cfg)
 
     seeds = seed_stream(getattr(params, "seed", 42), getattr(params, "repeat", 1))
     subject_filter = _prepare_subject_filter(params, subject_files)
+
+    log_dir = params.log_dir
+    if params.mesh is not None and process_count() > 1:
+        if process_index() != 0:  # lockstep: rank 0's files are canonical
+            params.log_dir = os.path.join(params.log_dir, f".process{process_index()}")
+            os.makedirs(params.log_dir, exist_ok=True)
+    else:
+        subject_files = host_shard(subject_files)
 
     for subject_file in subject_files:
         subject_id = subject_file.split("_")[1].split(".")[0]
@@ -113,7 +151,31 @@ def run(config: dict, device: DeviceLike = None) -> str:
         else:
             results, conf_mat, labels = train_joint_targets(subject_params, seeds)
         save_and_plot_results(subject_params, results, conf_mat, labels)
-    return params.log_dir
+    merge_process_results(params.log_dir)
+    return log_dir  # every rank returns rank 0's directory
+
+
+def merge_process_results(log_dir: str) -> None:
+    """Several processes: after a barrier, rank 0 appends every
+    ``results.process<k>.csv`` shard in ``log_dir`` to ``results.csv``
+    (the ``csv`` module; columns in order of first appearance) and
+    removes the shards. A no-op with one process."""
+    if process_count() <= 1:
+        return
+    barrier("train_classifier:results")
+    if process_index() != 0:
+        return
+    shards = sorted(glob.glob(os.path.join(log_dir, "results.process*.csv")))
+    rows = []
+    for path in shards:
+        with open(path, newline="") as f:
+            rows += list(csv.DictReader(f))
+    if rows:
+        _append_rows(os.path.join(log_dir, "results.csv"), rows)
+    for path in shards:
+        os.remove(path)
+    print(f"Merged {len(shards)} process result shards into "
+          f"{os.path.join(log_dir, 'results.csv')}")
 
 
 def _prepare_subject_params(base_params: Namespace, subject_id: str) -> Namespace:
@@ -152,6 +214,7 @@ def main(argv=None) -> str:
         help="torch device (default: the CUDA card; 'cpu' to run on the CPU)",
     )
     args = parser.parse_args(argv)
+    initialize(device=args.device)
     log_dir = run(load_config(args.config), device=args.device)
     print(log_dir)
     return log_dir

@@ -14,11 +14,15 @@ then 2 x n_waves WAVs come from one batched ``mels_to_audio``.
 
     python -m decode_tonal_langauge_tpu_torch.training.train_synthesizer --help
 
-Runs on one device (``--device``; default the CUDA card, and it raises
-without one). The JAX stage's ``--seed_parallel``, ``--parallel_data``
-and ``--no_compilation_cache`` are accepted and change nothing: the
-seeds run one at a time with results equal to a sequential fit's, there
-is one device and no compile cache. ``--dtype bfloat16`` builds the
+Runs on ``--device`` (default the CUDA card, and it raises without one).
+``--parallel_data N`` (or ``auto``) makes each seed's fit data-parallel
+over N ranks, one per card, launched with ``torchrun --nproc_per_node N
+-m decode_tonal_langauge_tpu_torch.training.train_synthesizer ...``
+(``parallel/``); rank 0 writes the checkpoints, the results row, the
+figures and the WAVs. The JAX stage's ``--seed_parallel`` and
+``--no_compilation_cache`` are accepted and change nothing: the seeds run
+one at a time with results equal to a sequential fit's, and there is no
+compile cache. ``--dtype bfloat16`` builds the
 synthesizer computing in bfloat16 (parameters float32); the frozen
 classifiers stay float32. Config JSON keys: ``mel_kwargs``, ``tone_dynamic_mapping``,
 ``n_syllables``, ``n_tones``.
@@ -38,6 +42,8 @@ from ..data.splits import split_indices
 from ..data.utils import select_non_discriminative_channels
 from ..models.base import init_params
 from ..models.factory import CLASSIFIER_SHORT_NAMES, build_synthesis_model, get_classifier_by_name
+from ..parallel.distributed import initialize, process_index
+from ..parallel.mesh import mesh_from_config
 from ..runtime.device import resolve_device
 from ..utils.audio import audio_to_mel, compare_mels, mels_to_audio, write_wav
 from ..utils.visualise import plot_training_losses
@@ -113,7 +119,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--parallel_data", type=str, default=None,
-        help="Accepted for the JAX stage's CLI; the port trains on one device.",
+        help="Data-parallel width: a rank count (one rank per card, launched "
+             "with torchrun) or 'auto' for every rank running.",
     )
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--epochs", type=int, default=100)
@@ -211,12 +218,11 @@ def _note_jax_only_flags(params: argparse.Namespace) -> None:
     given = [flag for flag, on in (
         ("--seed_parallel", bool(getattr(params, "seed_parallel", 1))
          and getattr(params, "repeat", 1) > 1),
-        ("--parallel_data", bool(getattr(params, "parallel_data", None))),
         ("--no_compilation_cache", bool(getattr(params, "no_compilation_cache", False))),
     ) if on]
     if given:
-        print(f"{', '.join(given)}: accepted, but the port fits one seed at a time on "
-              "one device and compiles nothing; ignoring")
+        print(f"{', '.join(given)}: accepted, but the port fits one seed at a time "
+              "and compiles nothing; ignoring")
 
 
 def _figures(params, history, origin_mels, recon_mels, n_mels: int) -> None:
@@ -241,8 +247,12 @@ def run(params: argparse.Namespace) -> dict:
     """Train (or, with ``evaluate_only``, re-evaluate) the synthesizer
     for every repeat seed; returns the summary row, also appended to the
     results CSV."""
+    initialize(device=getattr(params, "device", None))
     device = resolve_device(getattr(params, "device", None))
     _note_jax_only_flags(params)
+    pd = getattr(params, "parallel_data", None)
+    mesh = mesh_from_config({"data": pd} if pd else None)
+    writer = process_index() == 0
     evaluate_only = bool(getattr(params, "evaluate_only", False))
     if evaluate_only and not getattr(params, "checkpoint_dir", None):
         raise ValueError(
@@ -312,6 +322,7 @@ def run(params: argparse.Namespace) -> dict:
             verbose=params.verbose > 0, tone_scaler=tone_scaler,
             syllable_scaler=syllable_scaler,
             moment_dtype=getattr(params, "moment_dtype", None), device=device,
+            mesh=mesh,
         )
 
     def ckpt_path(root: str, seed) -> str:
@@ -346,7 +357,7 @@ def run(params: argparse.Namespace) -> dict:
             resume=bool(getattr(params, "resume", False)),
             checkpoint_every=getattr(params, "checkpoint_every", None),
         ))
-        if getattr(params, "checkpoint_dir", None):
+        if getattr(params, "checkpoint_dir", None) and writer:
             from ..runtime.checkpoint import save_checkpoint
 
             os.makedirs(params.checkpoint_dir, exist_ok=True)
@@ -372,6 +383,8 @@ def run(params: argparse.Namespace) -> dict:
         "mel_pearson_r_mean": float(np.mean(pearson_rs)),
         "mel_pearson_r_std": float(np.std(pearson_rs)),
     }
+    if not writer:
+        return summary
     _append_rows(params.result_file, [summary])
 
     history, _, recon_mels, origin_mels = per_seed[-1]

@@ -25,8 +25,21 @@ The JAX trainer draws its permutations and dropout keys from one
 ``jax.random`` key chain and initialises Flax weights from
 ``jax.random.key(seed)``; torch cannot reproduce either stream, so the two
 packages agree step for step only given the same weights and batch order
-(the tests feed both). Training runs on one device: a ``mesh`` is not
-supported yet.
+(the tests feed both).
+
+With a ``mesh`` (``parallel/mesh.py``) the fit is data-parallel over its
+``data`` axis, one rank per card: the batch rounds up to a multiple of
+the axis, every rank holds the whole padded train set and draws the same
+permutation, and each takes its contiguous slice of every batch. A step
+computes its slice's ``sum(w * ce)`` over the global batch's ``sum(w)``
+(known on the host, so no collective is needed for it), then one
+all-reduce (SUM) adds the gradients, the loss and the class counts of the
+macro accuracy (``DataParallelLayout.reduce_sum``); the validation pass
+reduces its sums and gathers its predictions alike, so every rank takes
+the same early-stopping branch. Dropout draws the global batch's masks
+(``ops/dropout.py``), so a data-parallel fit follows the one-device fit.
+Rank 0 writes the history, the train state and the confusion matrix; the
+others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from torch import nn
 
 from ..models.base import init_params
 from ..ops.dropout import set_dropout_generator
+from ..parallel.mesh import DataParallelLayout
 from ..runtime.device import DeviceLike, exact_f32, resolve_device
 from ..utils import metrics as M
 from .optim import NAdam
@@ -71,22 +85,40 @@ def _stack_batches(x: np.ndarray, y: np.ndarray, batch_size: int):
     return xb, yb, wb
 
 
+def _class_counts(preds: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                  n_classes: int):
+    """(support, correct): the weighted count of each class in the batch
+    and of its correct predictions."""
+    onehot = F.one_hot(y, n_classes).to(w.dtype) * w[:, None]
+    support = onehot.sum(dim=0)
+    correct = (onehot * (preds == y).to(w.dtype)[:, None]).sum(dim=0)
+    return support, correct
+
+
+def _macro_from_counts(support: torch.Tensor, correct: torch.Tensor) -> torch.Tensor:
+    """Macro-averaged per-class accuracy over the classes present (over
+    the last axis, so stacked batches give one value each)."""
+    per_class = torch.where(support > 0, correct / support.clamp_min(1.0),
+                            torch.zeros_like(support))
+    n_present = (support > 0).sum(dim=-1).clamp_min(1)
+    return per_class.sum(dim=-1) / n_present
+
+
 def _macro_accuracy(preds: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                     n_classes: int) -> torch.Tensor:
     """Macro-averaged per-class accuracy over the classes present in the
     (weighted) batch."""
-    onehot = F.one_hot(y, n_classes).to(w.dtype) * w[:, None]
-    support = onehot.sum(dim=0)
-    correct = (onehot * (preds == y).to(w.dtype)[:, None]).sum(dim=0)
-    per_class = torch.where(support > 0, correct / support.clamp_min(1.0),
-                            torch.zeros_like(support))
-    n_present = (support > 0).sum().clamp_min(1)
-    return per_class.sum() / n_present
+    return _macro_from_counts(*_class_counts(preds, y, w, n_classes))
 
 
-def _batch_loss(out: torch.Tensor, y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _batch_loss(out: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                w_total: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``sum(w * ce) / max(w_total, 1)``; ``w_total`` is the global
+    batch's ``sum(w)`` when ``out`` is one rank's slice (default: this
+    batch's)."""
     ce = F.cross_entropy(out, y, reduction="none")
-    return (ce * w).sum() / w.sum().clamp_min(1.0)
+    total = w.sum() if w_total is None else w_total
+    return (ce * w).sum() / total.clamp_min(1.0)
 
 
 EarlyStop = Tuple[float, int, int, bool]  # best_val, best_epoch, bad, stopped
@@ -118,12 +150,13 @@ class FitResult:
 
 @dataclass
 class _DeviceData:
-    x: torch.Tensor  # (N_pad, ...) padded train set
+    x: torch.Tensor  # (N_pad, ...) padded train set, whole on every rank
     y: torch.Tensor
     w: torch.Tensor
-    vxb: torch.Tensor  # (n_batches, B, ...) validation batches
+    vxb: torch.Tensor  # (n_batches, B / dp, ...) this rank's validation rows
     vyb: torch.Tensor
     vwb: torch.Tensor
+    vtot: torch.Tensor  # (n_batches,) each global validation batch's sum(w)
 
 
 def write_history(log_dir: str, history: List[Dict[str, float]]) -> None:
@@ -157,28 +190,25 @@ def write_confusion_csv(path: str, cm: np.ndarray) -> None:
 # ``scan_unroll`` unrolls the JAX batch scan, a compiler knob whose
 # histories are identical by design (batches run in a Python loop here);
 # ``seed_chunk`` bounds the seeds of one vmapped fit (seeds run one at a
-# time here); ``mesh`` shards the batch (not supported yet: training runs
-# on one device).
-JAX_ONLY_KEYS = frozenset({"mesh", "scan_unroll", "seed_chunk"})
+# time here).
+JAX_ONLY_KEYS = frozenset({"scan_unroll", "seed_chunk"})
 
 
 def accept_jax_only(keys: Dict[str, Any]) -> None:
-    """Refuse any key but :data:`JAX_ONLY_KEYS`, and say that a mesh is
-    ignored."""
+    """Refuse any key but :data:`JAX_ONLY_KEYS`."""
     unknown = sorted(set(keys) - JAX_ONLY_KEYS)
     if unknown:
         raise TypeError(f"unexpected keyword arguments {unknown}")
-    if keys.get("mesh") is not None:
-        print("mesh given, but the port trains on one device; ignoring it")
 
 
 class ClassifierTrainer:
     """Trains a port classifier on a device-resident dataset.
 
     ``device=None`` means the CUDA card (it raises without one); the CPU
-    runs only when asked for (``device="cpu"``). The JAX trainer's
-    ``mesh`` and ``scan_unroll`` are accepted and change nothing
-    (:data:`JAX_ONLY_KEYS`).
+    runs only when asked for (``device="cpu"``). ``mesh`` makes the fit
+    data-parallel (module docstring); ``batch_size`` then rounds up to a
+    multiple of its ``data`` axis, as in JAX. The JAX trainer's
+    ``scan_unroll`` is accepted and changes nothing (:data:`JAX_ONLY_KEYS`).
     """
 
     def __init__(
@@ -195,13 +225,16 @@ class ClassifierTrainer:
         verbose: bool = False,
         moment_dtype: Optional[str] = None,
         device: DeviceLike = None,
+        mesh=None,
         **jax_only,
     ):
         accept_jax_only(jax_only)
         self.device = resolve_device(device)
         self.model = model
         self.n_classes = n_classes
-        self.batch_size = batch_size
+        self.mesh = mesh
+        self._layout = DataParallelLayout(mesh)
+        self.batch_size = self._layout.round_batch(batch_size)
         self.max_epochs = max_epochs
         self.patience = patience
         self.seed = seed
@@ -232,6 +265,7 @@ class ClassifierTrainer:
         self._perm_gen = torch.Generator().manual_seed(self.seed)
         self._dropout_gen = torch.Generator(device=self.device).manual_seed(self.seed)
         set_dropout_generator(self.model, self._dropout_gen)
+        self._layout.attach(self.model)
 
     @property
     def params(self) -> Optional[Dict[str, torch.Tensor]]:
@@ -255,41 +289,60 @@ class ClassifierTrainer:
             return x, y
         return x, y, torch.as_tensor(np.asarray(w, dtype=np.float32), device=self.device)
 
+    def _local_stacks(self, xb, yb, wb):
+        """(n_batches, B, ...) host stacks -> this rank's rows on the
+        device, and each global batch's ``sum(w)``."""
+        totals = torch.as_tensor(np.asarray(wb, np.float32).sum(axis=1), device=self.device)
+        return (*self._tensors(*self._layout.place_stacks(xb, yb, wb)), totals)
+
     def _device_data(self, train_x, train_y, val_x, val_y) -> _DeviceData:
         """Both sets padded to whole batches and placed on the device once;
-        the train set flat (the shuffle happens per epoch on the device)."""
+        the train set flat (the shuffle happens per epoch on the device),
+        the validation set as this rank's rows of each batch."""
         xb, yb, wb = _stack_batches(train_x, train_y, self.batch_size)
         x, y, w = self._tensors(
             xb.reshape((-1,) + xb.shape[2:]), yb.reshape(-1), wb.reshape(-1))
-        vxb, vyb, vwb = self._tensors(*_stack_batches(val_x, val_y, self.batch_size))
-        return _DeviceData(x, y, w, vxb, vyb, vwb)
+        return _DeviceData(x, y, w, *self._local_stacks(
+            *_stack_batches(val_x, val_y, self.batch_size)))
 
-    def train_step(self, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor):
-        """One NAdam step on a weighted batch on the device; returns the
-        (loss, macro accuracy) tensors."""
+    def train_step(self, x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                   w_total: Optional[torch.Tensor] = None):
+        """One NAdam step on a weighted batch (this rank's rows of it under
+        a mesh, with the global batch's ``sum(w)`` as ``w_total``) on the
+        device; returns the global batch's (loss, macro accuracy)
+        tensors."""
         self.model.train()
         with exact_f32():
             out = self.model(x)
-            loss = _batch_loss(out, y, w)
+            loss = _batch_loss(out, y, w, w_total)
             grads = torch.autograd.grad(loss, self._weights)
+            with torch.no_grad():
+                counts = _class_counts(out.argmax(dim=-1), y, w, self.n_classes)
+            *grads, loss, support, correct = self._layout.reduce_sum(
+                [*grads, loss.detach(), *counts])
             self.optimizer.step(grads)
-        with torch.no_grad():
-            acc = _macro_accuracy(out.argmax(dim=-1), y, w, self.n_classes)
-        return loss.detach(), acc
+        return loss, _macro_from_counts(support, correct)
 
     @torch.no_grad()
-    def _eval_batches(self, xb, yb, wb):
-        """Mean per-batch loss and macro accuracy, and the predictions."""
+    def _eval_batches(self, xb, yb, wb, totals):
+        """Mean per-batch loss and macro accuracy, and the predictions of
+        every rank's rows in batch order."""
         self.model.eval()
-        losses, accs, preds = [], [], []
+        losses, supports, corrects, preds = [], [], [], []
         with exact_f32():
-            for x, y, w in zip(xb, yb, wb):
+            for x, y, w, total in zip(xb, yb, wb, totals):
                 out = self.model(x)
                 pred = out.argmax(dim=-1)
-                losses.append(_batch_loss(out, y, w))
-                accs.append(_macro_accuracy(pred, y, w, self.n_classes))
+                losses.append(_batch_loss(out, y, w, total))
+                support, correct = _class_counts(pred, y, w, self.n_classes)
+                supports.append(support)
+                corrects.append(correct)
                 preds.append(pred)
-        return torch.stack(losses).mean(), torch.stack(accs).mean(), torch.cat(preds)
+        losses, supports, corrects = self._layout.reduce_sum(
+            [torch.stack(losses), torch.stack(supports), torch.stack(corrects)])
+        # (n_batches, B / dp) per rank -> (n_batches, B) -> flat
+        preds = self._layout.gather(torch.stack(preds).T.contiguous()).T.reshape(-1)
+        return losses.mean(), _macro_from_counts(supports, corrects).mean(), preds
 
     def _epoch(self, perm: torch.Tensor, data: _DeviceData) -> torch.Tensor:
         """One epoch in the order ``perm`` (a permutation of the padded
@@ -298,11 +351,13 @@ class ClassifierTrainer:
         weight norm, val loss, val accuracy); the losses and accuracies
         are means of per-batch means."""
         n_batches = data.x.shape[0] // self.batch_size
-        shape = (n_batches, self.batch_size)
-        xb = data.x[perm].reshape(shape + data.x.shape[1:])
-        yb, wb = data.y[perm].reshape(shape), data.w[perm].reshape(shape)
-        losses, accs = zip(*(self.train_step(xb[b], yb[b], wb[b]) for b in range(n_batches)))
-        val_loss, val_acc, _ = self._eval_batches(data.vxb, data.vyb, data.vwb)
+        idx = perm.reshape(n_batches, self.batch_size)
+        totals = data.w[idx].sum(dim=1)
+        (idx,) = self._layout.place_stacks(idx)
+        xb, yb, wb = data.x[idx], data.y[idx], data.w[idx]
+        losses, accs = zip(*(self.train_step(xb[b], yb[b], wb[b], totals[b])
+                             for b in range(n_batches)))
+        val_loss, val_acc, _ = self._eval_batches(data.vxb, data.vyb, data.vwb, data.vtot)
         with torch.no_grad():
             w_norm = torch.sqrt(sum((p * p).sum() for p in self._weights))
         return torch.stack([torch.stack(losses).mean(), torch.stack(accs).mean(),
@@ -371,6 +426,7 @@ class ClassifierTrainer:
             restored = self._restore_train_state(checkpoint_dir)
             if restored is not None:
                 es, epochs_done, history_arr = restored
+        self._layout.replicate_tree(self.model)
 
         data = self._device_data(train_x, train_y, val_x, val_y)
         n = data.x.shape[0]
@@ -389,8 +445,9 @@ class ClassifierTrainer:
                 rows.append(metrics + [1.0])
             history_arr = np.concatenate([history_arr, np.asarray(rows, np.float32)])
             epochs_done += seg
-            if checkpoint_dir:
+            if checkpoint_dir and self._layout.writer:
                 self._save_train_state(checkpoint_dir, es, epochs_done, history_arr)
+            self._layout.barrier("fit:train_state")
 
         history: List[Dict[str, float]] = []
         for epoch, row in enumerate(history_arr):
@@ -402,16 +459,15 @@ class ClassifierTrainer:
                 h = history[-1]
                 print(f"epoch {epoch}: train/loss={h['train/loss']:.4f} "
                       f"val/loss={h['val/loss']:.4f} val/acc={h['val/accuracy']:.4f}")
-        if self.log_dir:
+        if self.log_dir and self._layout.writer:
             write_history(self.log_dir, history)
         return FitResult(history, int(es[1]), bool(es[3]))
 
     # ------------------------------------------------------------------
     def predict(self, x: np.ndarray) -> np.ndarray:
         """Argmax class predictions."""
-        xb, yb, wb = _stack_batches(x, np.zeros(x.shape[0], dtype=np.int64),
-                                    self.batch_size)
-        _, _, preds = self._eval_batches(*self._tensors(xb, yb, wb))
+        stacks = _stack_batches(x, np.zeros(x.shape[0], dtype=np.int64), self.batch_size)
+        _, _, preds = self._eval_batches(*self._local_stacks(*stacks))
         return preds.cpu().numpy()[: x.shape[0]]
 
     def test(self, x: np.ndarray, y: np.ndarray,
@@ -424,7 +480,7 @@ class ClassifierTrainer:
             "f1_macro": M.macro_f1(y, preds),
             "confusion_matrix": M.confusion_matrix(y, preds, labels=np.arange(self.n_classes)),
         }
-        if self.log_dir and log_confusion:
+        if self.log_dir and log_confusion and self._layout.writer:
             os.makedirs(self.log_dir, exist_ok=True)
             write_confusion_csv(os.path.join(self.log_dir, "confusion_matrix_test.csv"),
                                 out["confusion_matrix"])

@@ -377,12 +377,16 @@ def test_training_dir_errors(served_run, tmp_path, case):
 
 def test_training_dir_stream_and_subject_flag(served_run, tmp_path):
     """A stream with --subject_id at the provenance window decodes; the
-    JAX-only flags are accepted with a note."""
+    JAX-only --no_compilation_cache is accepted with a note, --parallel_data
+    1 is one process, and --parallel_data 2 in one process raises."""
     stream = os.path.join(str(tmp_path), "rec.npz")
     rng = np.random.default_rng(0)
     np.savez(stream, data=rng.standard_normal((6, 100)).astype(np.float32), sf=100.0)
-    summary = serving.run(serving.build_parser().parse_args(_serve_args(
+    args = lambda *extra: serving.build_parser().parse_args(_serve_args(  # noqa: E731
         served_run, str(tmp_path / "o"), "--stream_recording", stream,
         "--stream_window_s", "0.1", "--stream_hop_s", "0.05", "--subject_id", "1",
-        "--parallel_data", "2", "--no_compilation_cache", sample=False)))
+        *extra, sample=False))
+    summary = serving.run(args("--parallel_data", "1", "--no_compilation_cache"))
     assert summary["n_windows"] == 19
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        serving.run(args("--parallel_data", "2"))

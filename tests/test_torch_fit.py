@@ -255,12 +255,14 @@ def test_seed_loop_equals_sequential_trainer(seed_chunk):
 
 
 def test_jax_only_keys_change_nothing(capsys):
-    """The JAX trainer's mesh and scan_unroll are accepted and change no
-    result; a mesh is reported as ignored; any other key is refused."""
+    """The JAX trainer's scan_unroll and seed_chunk are accepted and change
+    no result, as does mesh=None (the one-device layout; a mesh makes the
+    fit data-parallel, tests/test_torch_distributed.py); any other key is
+    refused."""
     x, y = _separable_data(np.random.default_rng(4), n=64)
     plain = _trainer(_dropout_mlp(), 3).fit(x[:48], y[:48], x[48:], y[48:])
-    keyed = _trainer(_dropout_mlp(), 3, mesh=object(), scan_unroll=4)
-    assert "one device" in capsys.readouterr().out
+    keyed = _trainer(_dropout_mlp(), 3, mesh=None, scan_unroll=4, seed_chunk=2)
+    assert capsys.readouterr().out == ""
     _equal_fits(plain, keyed.fit(x[:48], y[:48], x[48:], y[48:]))
     with pytest.raises(TypeError, match="no_such_key"):
         _trainer(_dropout_mlp(), 3, no_such_key=1)

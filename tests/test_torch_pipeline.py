@@ -177,7 +177,10 @@ def test_stage_list_and_io_threading_equal_jax():
 
 def test_run_pipeline_passes_device_and_calls_user_functions(monkeypatch, capsys):
     """A port stage gets the resolved device; a user function gets the
-    config alone; the parallel and compilation-cache sections are noted."""
+    config alone; the compilation-cache section is noted; ``parallel:
+    auto`` in one process is one process, and a parallel section that asks
+    for more ranks than run raises once the training stage builds its
+    mesh."""
     import types
 
     calls = []
@@ -196,8 +199,12 @@ def test_run_pipeline_passes_device_and_calls_user_functions(monkeypatch, capsys
     assert out == {"preprocess": "/user/out"}
     assert calls[0][0] == "user" and calls[1] == ("port", torch.device("cpu"))
     text = capsys.readouterr().out
-    assert "parallel: accepted" in text and "compilation_cache: accepted" in text
+    assert "parallel:" not in text and "compilation_cache: accepted" in text
     assert "Stage timing" not in text
+    from decode_tonal_langauge_tpu_torch.parallel.mesh import mesh_from_config
+
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        mesh_from_config({"data": 2})
 
 
 class TinyClassifier(nn.Module):

@@ -404,9 +404,9 @@ class TestStage:
         assert float(ecog["sf"]) == target and ecog["data"].shape[0] == 16
 
     def test_cli_figures_and_parallel(self, tmp_path, capsys):
-        """The CLI on the CPU with figures on and a ``parallel:`` key: a
-        message, then a single-device run; the same setup directory is
-        reused on a second run."""
+        """The CLI on the CPU with figures on and a ``parallel:`` key: one
+        asking for 2 ranks in one process raises, ``auto`` runs the one
+        process; the same setup directory is reused on a second run."""
         spec = SyntheticSpec(n_channels=4, n_blocks=1, trials_per_block=2,
                              ecog_sf=500.0, audio_sf=1000.0)
         raw = str(tmp_path / "raw")
@@ -415,8 +415,12 @@ class TestStage:
         config["parallel"] = {"data": 2}
         path = tmp_path / "config.yaml"
         path.write_text(yaml.safe_dump(config))
+        with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+            tmain.main([str(path), "--device", "cpu"])
+        config["parallel"] = "auto"
+        path.write_text(yaml.safe_dump(config))
         setup_dir = tmain.main([str(path), "--device", "cpu"])
-        assert "single-device" in capsys.readouterr().out
+        assert "parallel:" not in capsys.readouterr().out
         figs = os.path.join(setup_dir, "figures", "subject_1", "block_1", "ecog")
         assert sorted(os.listdir(figs)) == [
             "step1_downsample.png", "step2_frequency_filter.png",

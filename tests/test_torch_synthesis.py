@@ -525,7 +525,8 @@ def test_stage_flags(stage_world, tmp_path, capsys):
     bf16 = train_synthesizer.run(parse(_stage_args(paths, tmp_path, "port", "--device", "cpu",
                                                    "--dtype", "bfloat16", "--parallel_data",
                                                    "auto", "--no_compilation_cache")))
-    assert "--parallel_data, --no_compilation_cache" in capsys.readouterr().out
+    note = capsys.readouterr().out
+    assert "--no_compilation_cache: accepted" in note and "--parallel_data" not in note
     seeds = json.loads(bf16["seeds"])
     assert np.isfinite(json.loads(bf16["mcd_all"])).all() and len(seeds) == 2
     ckpt, _ = load_checkpoint(str(tmp_path / "ckpts" / f"SynthesisLite_seed_{seeds[0]}"))
