@@ -49,7 +49,29 @@ present, or when the port's sources are not beside it.
    memory, each model's median train-step time and trials/s, and the
    device work of one step (busy share, operations, the top ones from
    ``torch.profiler``); K1 must launch 0 times.
-5. Synthesizer phase: a synthetic subject (``data/synthetic``) through the
+5. Seed-parallel phase: the batched fit of every repeat seed
+   (``training/seed_parallel.py``) against the seed loop. Two NAdam steps
+   of the stacked seeds of the full-width CNN, CNN-RNN and SynthesisFull
+   in float64 (dropout on) against each seed's own steps, every weight
+   within 1e-9; 4 seeds x 3 epochs of the CNN (syllables) and CNN-RNN
+   (tones, lstm_dim 800) on the training phase's subject at batch 32
+   (``SeedParallelTrainer.fit_eval`` against ``fit_seed`` per seed, and
+   the loop again under deterministic cuDNN as the yardstick of float32
+   order; rows, flips and accuracies printed, epochs and stops equal);
+   ``train_synthesizer.run`` at the SynthesisFull widths with 4 seeds,
+   ``--seed_parallel 1`` against ``0``: per-seed losses, MCDs and test MCDs
+   by the JAX package's rule (rel 2e-3 / abs 2e-4) and both walls, two
+   batched SynthesisFull gradients equal under deterministic cuDNN; one
+   batched step of the 4 seeds against the loop's 4 steps for each model
+   (median of 10, busy share, operations, peak memory, the convolution
+   kernels cuDNN picked); ``configs/fast_bf16.yaml`` through the runner
+   with ``seed_parallel`` on and off (evaluation rows equal to training's
+   in both, flips between them and both walls printed); two gloo ranks
+   sharing the card with the CNN's seeds sharded over them, every rank's
+   rows, predictions and weights equal to one process's fit of the same
+   seed blocks; K1 0 launches. The argument for the rules is beside
+   SP_SEEDS.
+6. Synthesizer phase: a synthetic subject (``data/synthetic``) through the
    preprocess stage and ``data/extract_samples.run`` (npz keys, shapes,
    labels equal to the events); then ``train_synthesizer.run`` at the
    paper's SynthesisFull widths (101.8 M parameters: 96 trials of 40
@@ -64,7 +86,7 @@ present, or when the port's sources are not beside it.
    batches of 8, lie within 1e-3 of ``evaluate``'s; the step timed at
    batch 8 and 32 (trials/s, device ms, busy share, top ops); two NAdam
    steps card vs CPU vs float64 with the TF32 control; K1 0 launches.
-6. Serving phase at the paper's widths (CNN-RNN tone and CNN syllable
+7. Serving phase at the paper's widths (CNN-RNN tone and CNN syllable
    models on 6 channels each, SynthesisLite on 20, 200-sample epochs,
    4 tones, 8 syllables, mel_dim 2560, Griffin-Lim at sr 24414 with n_fft
    2048, hop 512, 32 iterations) with seeded random weights: the serving
@@ -72,7 +94,7 @@ present, or when the port's sources are not beside it.
    window 200, hop 40: 596 windows), then the same epoch decode on the
    card and on the CPU, which must agree. Prints trials/s, windows/s and
    waves/s beside the card's name and power limit.
-7. Pipeline phase: ``configs/example_config.yaml`` through
+8. Pipeline phase: ``configs/example_config.yaml`` through
    ``pipeline.run_pipeline`` on the card (preprocess, sample collection,
    channel selection, training, evaluation, visualisation) on a synthetic
    subject (``data/synthetic``) of 128 channels at 1000 Hz, 2 blocks x 160
@@ -87,7 +109,7 @@ present, or when the port's sources are not beside it.
    trainer's), no figures without matplotlib, K1 0 launches; prints the
    stage timing, the wall, peak memory, and each ANOVA's wall, device time
    and operations (``torch.profiler``).
-8. bf16 phase (``configs/fast_bf16.yaml``'s compute dtype): one train step
+9. bf16 phase (``configs/fast_bf16.yaml``'s compute dtype): one train step
    of the full-width CNN and CNN-RNN at batch 32 and of SynthesisFull at
    batch 8 and 32 in float32, in bf16 and in bf16 with cuBLAS's bf16
    reductions allowed, from the same seeded weights (median of 10 after 3
@@ -104,7 +126,7 @@ present, or when the port's sources are not beside it.
    3 epochs, MCD below the zero predictor's) served with
    ``--synthesis_dtype bfloat16`` (test mels within four bf16 roundings of
    ``evaluate``'s); K1 0 launches.
-9. Parallel phase (``parallel/``): (a) one train step of the full-width
+10. Parallel phase (``parallel/``): (a) one train step of the full-width
    CNN and CNN-RNN (batch 32) and SynthesisFull (batch 8) through the
    data-parallel layout on a one-rank NCCL group, equal to the plain step
    bit for bit; (b) a ``torch.distributed.run`` launch of two ranks
@@ -121,7 +143,7 @@ present, or when the port's sources are not beside it.
    mels within 1e-5; (e) with two or more cards, (b)'s steps over NCCL
    one rank per card (skipped, with a note, on one card). Every launch has
    a timeout; K1 0 launches in every process.
-10. Prints each phase's wall time, the ``kernels`` JSON line, then the
+11. Prints each phase's wall time, the ``kernels`` JSON line, then the
    final ``ok`` JSON line.
 """
 
@@ -1121,12 +1143,13 @@ def synthesis_stage(card: str, device: str, root: str, world: dict, sz: dict) ->
     import torch
 
     from decode_tonal_langauge_tpu_torch.ops import cuda_iir
+    from decode_tonal_langauge_tpu_torch.training import synthesis_trainer
     from decode_tonal_langauge_tpu_torch.training import train_synthesizer as stage
     from decode_tonal_langauge_tpu_torch.utils.audio import audio_to_mel
 
     paths = world["paths"]
     parse = stage.build_parser().parse_args
-    fits, fit_eval = [], stage.fit_eval_seed
+    fits, fit_eval = [], synthesis_trainer.fit_eval_seed
 
     def recording(trainer, *args, **kwargs):  # each seed's trainer, times and results
         t0 = time.perf_counter()
@@ -1140,7 +1163,7 @@ def synthesis_stage(card: str, device: str, root: str, world: dict, sz: dict) ->
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     out = os.path.join(root, "fit")
-    stage.fit_eval_seed = recording
+    synthesis_trainer.fit_eval_seed = recording  # the seed loop's per-seed fit
     try:
         t0 = time.perf_counter()
         summary = stage.run(parse(synthesizer_args(
@@ -1148,7 +1171,7 @@ def synthesis_stage(card: str, device: str, root: str, world: dict, sz: dict) ->
             "--audio_dir", os.path.join(out, "wavs"))))
         stage_s = time.perf_counter() - t0
     finally:
-        stage.fit_eval_seed = fit_eval
+        synthesis_trainer.fit_eval_seed = fit_eval
     peak_mib = torch.cuda.max_memory_allocated() / 2**20 if on_card else float("nan")
     k1 = cuda_iir.LAUNCHES
 
@@ -1998,6 +2021,7 @@ def bf16_synthesizer(card: str, device: str, sz: dict) -> None:
 
     from decode_tonal_langauge_tpu_torch import serving
     from decode_tonal_langauge_tpu_torch.data.splits import split_indices
+    from decode_tonal_langauge_tpu_torch.training import synthesis_trainer
     from decode_tonal_langauge_tpu_torch.training import train_synthesizer as stage
     from decode_tonal_langauge_tpu_torch.training.synthesis_trainer import compute_mcd
 
@@ -2007,19 +2031,19 @@ def bf16_synthesizer(card: str, device: str, sz: dict) -> None:
         args = synthesizer_args(paths, out, device, "--dtype", "bfloat16",
                                 "--moment_dtype", "bfloat16")
         args[args.index("--repeat") + 1] = "1"
-        fits, fit_eval = [], stage.fit_eval_seed
+        fits, fit_eval = [], synthesis_trainer.fit_eval_seed
 
         def recording(trainer, *a, **kw):
             fits.append((trainer, fit_eval(trainer, *a, **kw)))
             return fits[-1][1]
 
-        stage.fit_eval_seed = recording
+        synthesis_trainer.fit_eval_seed = recording  # one seed: the seed loop
         try:
             t0 = time.perf_counter()
             summary = stage.run(stage.build_parser().parse_args(args))
             stage_s = time.perf_counter() - t0
         finally:
-            stage.fit_eval_seed = fit_eval
+            synthesis_trainer.fit_eval_seed = fit_eval
         (trainer, (history, mcd, recon, origin)), = fits
         check(trainer.model.dtype == torch.bfloat16
               and all(p.dtype == torch.float32 for p in trainer.model.parameters())
@@ -2077,6 +2101,496 @@ def bf16_phase(card: str, device: str = "cuda", pipe_sizes: dict = PIPE_FULL,
     bf16_synthesizer(card, device, syn_sizes)
     print(f"K1 launches during the bf16 phase: {cuda_iir.LAUNCHES}")
     check(cuda_iir.LAUNCHES == 0, "K1 launched during the bf16 phase")
+
+
+# The seed-parallel phase: every repeat seed of an experiment in one batched
+# fit (training/seed_parallel.py, training/seed_stack.py) against the seed loop.
+# The batched computation is held exactly: two NAdam steps of the stacked seeds
+# of each paper model in float64 (dropout on) against each seed's own steps,
+# every weight within 1e-9 of its tensor's largest (measured ~1e-13). Rows of
+# float32 fits are held by the JAX package's rule for its vmapped fit
+# (tests/test_seed_parallel.py:65-85: each history value within rel 2e-3 /
+# abs 2e-4 of the loop's, best epoch and stop equal, at most 2 test predictions
+# flipped a seed) where the loop reproduces itself under another float32 order
+# of its sums: SynthesisFull's 3-epoch fit does (batched within 2.6e-4). The
+# paper classifiers' 3-epoch float32 fits at lr 5e-4 do not: the loop under
+# deterministic cuDNN left the default loop by up to rel 1.12 (CNN) and 0.125
+# (CNN-RNN) with up to 21 of 64 predictions flipped, as far as the batched fit
+# did (NAdam's first steps, about lr times the sign of each gradient element,
+# turn the last digits of a reordered, nearly cancelling sum into a full step
+# either way, and max-pool near-ties route gradients either way). So their
+# rows, flips and test accuracies are printed beside that yardstick, and only
+# their structure (epochs run, early stop) is held. fast_bf16's bf16 fits with
+# seed_parallel on and off likewise: their flips are printed, and each run's
+# evaluation rows must equal its training rows.
+SP_SEEDS, SP_EPOCHS = 4, 3
+SP_ROW_RTOL, SP_ROW_ATOL = 2e-3, 2e-4
+SP_F64_ATOL, SP_F64_SEEDS, SP_F64_BATCH = 1e-9, 2, 4
+SP_FULL = dict(trials=TRAIN_TRIALS, lstm_dim=800, syn=SYN_FULL, pipe=PIPE_FULL)
+SP_REHEARSAL = dict(trials=96, lstm_dim=200, syn=SYN_REHEARSAL, pipe=PIPE_REHEARSAL)
+CONV_KERNEL_WORDS = ("conv", "dgrad", "wgrad", "fprop", "xmma", "implicit", "cudnn")
+
+
+def sp_close(got: float, want: float) -> bool:
+    return abs(got - want) <= max(SP_ROW_RTOL * abs(want), SP_ROW_ATOL)
+
+
+def sp_history_faults(label: str, got: list, want: list) -> list:
+    """Rule above for two histories: lists of rows (sequences of numbers)."""
+    if len(got) != len(want):
+        return [f"{label}: {len(got)} epochs against the loop's {len(want)}"]
+    return [f"{label} epoch {e} value {k}: {g[k]} against the loop's {w[k]}"
+            for e, (g, w) in enumerate(zip(got, want)) for k in range(len(w))
+            if not sp_close(g[k], w[k])]
+
+
+def sp_worst(pairs) -> float:
+    """The largest relative difference over (got, want) pairs."""
+    return max((abs(g - w) / max(abs(w), 1e-30) for g, w in pairs), default=0.0)
+
+
+def sp_rows(history: list) -> list:
+    """A classifier history as rows of numbers (HISTORY_KEYS' order)."""
+    from decode_tonal_langauge_tpu_torch.training.trainer import HISTORY_KEYS
+
+    return [[row[k] for k in HISTORY_KEYS] for row in history]
+
+
+def sp_by_epoch(got: list, want: list) -> list:
+    """Each epoch's largest relative difference over every seed's row;
+    ``got`` and ``want`` hold one history (rows of numbers) a seed."""
+    worst = [sp_worst((g, w) for gh, wh in zip(got, want) for g, w in zip(gh[e], wh[e]))
+             for e in range(min(len(h) for h in got + want))]
+    return [float(f"{v:.3g}") for v in worst]
+
+
+def sp_spread(got: list, want: list) -> tuple:
+    """Two classifier fits' distance (SeedFitResults, seed by seed): the
+    largest relative difference of their history values and each seed's
+    test predictions flipped."""
+    worst = sp_worst((g, w) for b, r in zip(got, want)
+                     for gr, wr in zip(sp_rows(b.history), sp_rows(r.history))
+                     for g, w in zip(gr, wr))
+    return worst, [int((b.test_preds != r.test_preds).sum()) for b, r in zip(got, want)]
+
+
+def sp_f64_steps(card: str, device: str, sz: dict, failures: list) -> None:
+    """Two NAdam steps of SP_F64_SEEDS stacked seeds of each paper model in
+    float64, dropout on (``seed_stack.SeedStack``, ``optim.SeedNAdam``: the
+    trainers' batched step), against each seed's own two steps: every
+    weight within SP_F64_ATOL of its tensor's largest (float64 puts the
+    reordered sums ~1e9 below float32's, where no near-tie of these inputs
+    is within reach; the parallel phase's argument)."""
+    import copy
+
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.models.base import init_params
+    from decode_tonal_langauge_tpu_torch.models.factory import get_classifier_by_name
+    from decode_tonal_langauge_tpu_torch.models.synthesis import SynthesisModelCNN
+    from decode_tonal_langauge_tpu_torch.ops.dropout import set_dropout_generator
+    from decode_tonal_langauge_tpu_torch.training.optim import NAdam, SeedNAdam
+    from decode_tonal_langauge_tpu_torch.training.seed_stack import SeedStack
+    from decode_tonal_langauge_tpu_torch.training.synthesis_trainer import _l1_loss
+    from decode_tonal_langauge_tpu_torch.training.trainer import _batch_loss
+
+    rng = np.random.default_rng(15)
+    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)  # noqa: E731
+    syn = sz["syn"]
+    cases = [(name, lambda name=name, k=k, kw=kw: get_classifier_by_name(
+                  name, k, TRAIN_CHANNELS, TRAIN_LENGTH, kw),
+              lambda k=k: [f64(rng.standard_normal((SP_F64_SEEDS, SP_F64_BATCH,
+                                                    TRAIN_CHANNELS, TRAIN_LENGTH))),
+                           torch.as_tensor(rng.integers(0, k, (SP_F64_SEEDS, SP_F64_BATCH)),
+                                           device=device),
+                           f64(np.ones((SP_F64_SEEDS, SP_F64_BATCH)))],
+              1, lambda out, y, w: _batch_loss(out, y, w), TRAIN_LR, 0.01, False)
+             for name, k, kw in (("CNN", N_SYLLS, {}),
+                                 ("CNNRNN", N_TONES, {"lstm_dim": sz["lstm_dim"]}))]
+    cases.append(("SynthesisFull",
+                  lambda: SynthesisModelCNN(syn["n_mels"] * 20, syn["non"], SYN_LENGTH),
+                  lambda: [f64(np.stack([a.numpy() for a in parts]))
+                           for parts in zip(*(synthesis_batch(rng, SP_F64_BATCH, syn)
+                                              for _ in range(SP_F64_SEEDS)))],
+                  2, lambda out, y, w: _l1_loss(out, y, w, w.sum()), SYN_LR, SYN_DECAY, True))
+    seeds = list(range(SP_F64_SEEDS))
+    for name, make, batch_fn, n_in, loss_fn, lr, decay, decay_all in cases:
+        models = [init_params(make(), s).double() for s in seeds]
+        loops = [copy.deepcopy(m).to(device) for m in models]
+        stack = SeedStack(models, torch.device(device))
+        opt = SeedNAdam(list(stack.params.values()), lr, weight_decay=decay, decay_all=decay_all)
+        gens = [torch.Generator(device=device).manual_seed(s) for s in seeds]
+        loop_opts = [NAdam(m, lr, weight_decay=decay, decay_all=decay_all) for m in loops]
+        for s, m in zip(seeds, loops):
+            set_dropout_generator(m, torch.Generator(device=device).manual_seed(s))
+        t0 = time.perf_counter()
+        for _ in range(2):
+            batch = batch_fn()
+            inputs, targets = batch[:n_in], batch[n_in:]
+            grads, _, _ = stack.grad_step(inputs, loss_fn, targets, gens)
+            opt.step([grads[k] for k in stack.params])
+            for i, (m, o) in enumerate(zip(loops, loop_opts)):
+                loss = loss_fn(m.train()(*(x[i] for x in inputs)), *(t[i] for t in targets))
+                o.step(torch.autograd.grad(loss, list(m.parameters())))
+        worst = max(float((stack.state_dict(i)[k] - v.cpu()).abs().max())
+                    / max(float(v.abs().max()), 1.0)
+                    for i, m in enumerate(loops) for k, v in m.state_dict().items())
+        if worst > SP_F64_ATOL:
+            failures.append(f"{name} float64 steps: a weight {worst:.3g} of its tensor's "
+                            f"largest from the seed's own")
+        print(f"{name}, {SP_F64_SEEDS} seeds, 2 float64 NAdam steps at batch {SP_F64_BATCH} "
+              f"(dropout on): batched weights "
+              f"within {worst:.3g} of each seed's own (rule {SP_F64_ATOL:g}); "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+        del models, loops, stack, opt, loop_opts
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+
+def sp_conv_kernels(rows: list) -> list:
+    """The convolution kernels among a step's device rows: (ms, count, name)."""
+    return [r for r in rows if any(w in r[2].lower() for w in CONV_KERNEL_WORDS)]
+
+
+def sp_print_steps(card: str, name: str, trials: int, batched: dict, loop: dict) -> None:
+    """One batched step of every seed against the loop's steps of every
+    seed, with the convolution kernels each picked."""
+    for label, prof in (("batched", batched), ("loop", loop)):
+        check(prof["rows"], f"torch.profiler saw no device time in a {name} {label} step")
+        print_step(card, f"{name}, {SP_SEEDS} seeds, {label}", trials, prof, top=6)
+        for ms, count, op in sp_conv_kernels(prof["rows"])[:8]:
+            print(f"    conv  {ms:8.4f} ms  x{count:<6g} {op[:110]}")
+    print(f"{name}: one batched step of {SP_SEEDS} seeds {batched['wall_ms']:.2f} ms against "
+          f"{SP_SEEDS} loop steps {loop['wall_ms']:.2f} ms "
+          f"({loop['wall_ms'] / batched['wall_ms']:.2f}x); device work "
+          f"{batched['busy_ms']:.2f} vs {loop['busy_ms']:.2f} ms, operations "
+          f"{batched['ops']:.0f} vs {loop['ops']:.0f}, peak {batched['peak_mib']:.0f} vs "
+          f"{loop['peak_mib']:.0f} MiB [{card}]")
+
+
+def sp_subject(sz: dict) -> dict:
+    """The training phase's subject (``write_subject``), its first
+    ``sz["trials"]`` trials."""
+    with tempfile.TemporaryDirectory() as root:
+        subject = write_subject(root, np.random.default_rng(0))
+        data = dict(np.load(os.path.join(subject["dirs"]["samples"], "subject_1.npz")))
+    n = sz["trials"]
+    return {"ecog": data["ecog"][:n], "tone": data["tone"][:n], "syllable": data["syllable"][:n]}
+
+
+def sp_stacks(subject: dict, target: str, seeds) -> list:
+    """Each seed's split and standardisation as the stage makes them
+    (``classifier_pipeline._seed_split``), stacked on the seed axis."""
+    from argparse import Namespace
+
+    from decode_tonal_langauge_tpu_torch.training.classifier_pipeline import _seed_split
+
+    params = Namespace(train_ratio=0.7, vali_ratio=0.1, test_ratio=0.2, standardize=True)
+    splits = [_seed_split(params, subject["ecog"], subject[target].astype(np.int32), s)[0]
+              for s in seeds]
+    return [np.stack(part) for part in zip(*splits)]
+
+
+def sp_classifier_kw(n_classes: int, device: str) -> dict:
+    return dict(n_classes=n_classes, learning_rate=TRAIN_LR, weight_decay=0.01,
+                batch_size=TRAIN_BATCH, max_epochs=SP_EPOCHS, patience=60, device=device)
+
+
+def sp_classifiers(card: str, device: str, subject: dict, seeds, sz: dict,
+                   failures: list) -> dict:
+    """Both paper classifiers, SP_SEEDS seeds x SP_EPOCHS epochs: the
+    batched fit against the loop and the loop against itself under
+    deterministic cuDNN (rows, flips, accuracies and walls printed; a
+    seed whose epochs or stop differ goes to ``failures``), then one
+    batched step against the loop's steps (card only). Returns the CNN's
+    batched results, the sharded run's reference."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.models.factory import get_classifier_by_name
+    from decode_tonal_langauge_tpu_torch.training.seed_parallel import (
+        SeedParallelTrainer,
+        fit_seed,
+    )
+    from decode_tonal_langauge_tpu_torch.training.trainer import ClassifierTrainer
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {}
+    for name, target, n_classes, kwargs in (("CNN", "syllable", N_SYLLS, {}),
+                                            ("CNNRNN", "tone", N_TONES,
+                                             {"lstm_dim": sz["lstm_dim"]})):
+        model_fn = lambda: get_classifier_by_name(  # noqa: E731
+            name, n_classes, TRAIN_CHANNELS, TRAIN_LENGTH, kwargs)
+        stacks = sp_stacks(subject, target, seeds)
+        kw = sp_classifier_kw(n_classes, device)
+        sync()
+        t0 = time.perf_counter()
+        batched = SeedParallelTrainer(model_fn(), seeds=seeds, **kw).fit_eval(*stacks)
+        sync()
+        batched_s = time.perf_counter() - t0
+        loop = [fit_seed(ClassifierTrainer(model_fn(), seed=s, **kw), *(a[i] for a in stacks))
+                for i, s in enumerate(seeds)]
+        sync()
+        loop_s = time.perf_counter() - t0 - batched_s
+        # The loop once more under deterministic cuDNN: the same fit in
+        # another float32 order of its sums, the yardstick for the rows.
+        torch.backends.cudnn.deterministic = True
+        try:
+            other = [fit_seed(ClassifierTrainer(model_fn(), seed=s, **kw),
+                              *(a[i] for a in stacks)) for i, s in enumerate(seeds)]
+        finally:
+            torch.backends.cudnn.deterministic = False
+        worst, flips = sp_spread(batched, loop)
+        worst_other, flips_other = sp_spread(other, loop)
+        failures += [f"{name} seed {b.seed}: {len(b.history)} epochs, stop {b.stopped_early} "
+                     f"against the loop's {len(w.history)}, {w.stopped_early}"
+                     for b, w in zip(batched, loop)
+                     if (len(b.history), b.stopped_early) != (len(w.history), w.stopped_early)]
+        acc = lambda rs: [float(np.mean(r.test_preds == r.test_true)) for r in rs]  # noqa: E731
+        by_epoch = lambda rs: sp_by_epoch([sp_rows(r.history) for r in rs],  # noqa: E731
+                                          [sp_rows(r.history) for r in loop])
+        final = lambda rs: [round(r.history[-1]["val/loss"], 4) for r in rs]  # noqa: E731
+        print(f"{name} ({n_classes} {target} classes), {SP_SEEDS} seeds x {SP_EPOCHS} epochs "
+              f"on {stacks[0].shape[1]} train trials at batch {TRAIN_BATCH}: batched fit "
+              f"{batched_s:.2f} s against the loop's {loop_s:.2f} s "
+              f"({loop_s / batched_s:.2f}x); rows within rel {worst:.3g} of the loop's (by "
+              f"epoch {by_epoch(batched)}), test predictions flipped {flips} of "
+              f"{stacks[4].shape[1]}; the loop under deterministic cuDNN: rows within rel "
+              f"{worst_other:.3g} (by epoch {by_epoch(other)}), flipped {flips_other}; test "
+              f"accuracy batched {acc(batched)}, loop {acc(loop)}, deterministic loop "
+              f"{acc(other)}; final val/loss batched {final(batched)}, loop {final(loop)}, "
+              f"deterministic {final(other)} [{card}]")
+        out[name] = batched
+        if not on_card:
+            continue
+        spt = SeedParallelTrainer(model_fn(), seeds=seeds, **kw)
+        spt.init()
+        x = torch.from_numpy(stacks[0][:, :TRAIN_BATCH]).to(device)
+        y = torch.from_numpy(stacks[1][:, :TRAIN_BATCH].astype(np.int64)).to(device)
+        w = torch.ones(y.shape, device=device)
+        total = w.sum(dim=1)
+        trainers = [ClassifierTrainer(model_fn(), seed=s, **kw) for s in seeds]
+        for t in trainers:
+            t.init()
+        sp_print_steps(card, name, SP_SEEDS * TRAIN_BATCH,
+                       step_profile(lambda: spt.train_step(x, y, w, total)),  # noqa: B023
+                       step_profile(lambda: [t.train_step(x[i], y[i], w[i])  # noqa: B023
+                                             for i, t in enumerate(trainers)]))  # noqa: B023
+        del spt, trainers
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_synthesizer(card: str, device: str, sz: dict, failures: list) -> None:
+    """``train_synthesizer.run`` at the synthesizer phase's SynthesisFull
+    widths with SP_SEEDS seeds, ``--seed_parallel 1`` against ``0``: each
+    seed's loss and MCD per epoch and its test MCD by the rule, both walls;
+    then (card only) two batched gradients of one batch equal under
+    deterministic cuDNN, and one batched step against the loop's steps at
+    batch 8."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.models.base import init_params
+    from decode_tonal_langauge_tpu_torch.models.factory import get_classifier_by_name
+    from decode_tonal_langauge_tpu_torch.models.synthesis import SynthesisModelCNN
+    from decode_tonal_langauge_tpu_torch.runtime.device import exact_f32
+    from decode_tonal_langauge_tpu_torch.training import train_synthesizer as stage
+    from decode_tonal_langauge_tpu_torch.training.synthesis_trainer import (
+        SeedSynthesisStack,
+        SynthesisTrainer,
+        _l1_loss,
+    )
+
+    on_card = device == "cuda"
+    results = {}
+    with tempfile.TemporaryDirectory() as root:
+        world = write_synthesis_world(root, sz)
+        for flag, fn_name in (("1", "seed_parallel_fit_eval"), ("0", "seed_loop_fit_eval")):
+            real = getattr(stage, fn_name)
+            got = []
+            setattr(stage, fn_name, lambda *a, _real=real, **k: got.append(_real(*a, **k)) or got[-1])
+            args = synthesizer_args(world["paths"], os.path.join(root, flag), device,
+                                    "--repeat", str(SP_SEEDS), "--seed_parallel", flag)
+            at = args.index("--checkpoint_dir")  # 4 x 407 MB not needed here
+            del args[at:at + 2]
+            try:
+                t0 = time.perf_counter()
+                summary = stage.run(stage.build_parser().parse_args(args))
+                wall = time.perf_counter() - t0
+            finally:
+                setattr(stage, fn_name, real)
+            check(len(got) == 1, f"--seed_parallel {flag}: {fn_name} ran {len(got)} times")
+            results[flag] = (got[0], summary, wall)
+    (batched, summary, b_wall), (loop, _, l_wall) = results["1"], results["0"]
+    faults, pairs = [], []
+    for seed, (bh, bmcd, _, _), (lh, lmcd, _, _) in zip(json.loads(summary["seeds"]),
+                                                       batched, loop):
+        faults += sp_history_faults(f"SynthesisFull seed {seed}", bh, lh)
+        if not sp_close(bmcd, lmcd):
+            faults.append(f"SynthesisFull seed {seed}: test MCD {bmcd} against the loop's {lmcd}")
+        pairs += [(g, w) for gr, wr in zip(bh, lh) for g, w in zip(gr, wr)] + [(bmcd, lmcd)]
+    failures += faults
+    print(f"synthesizer stage, SynthesisFull, {SP_SEEDS} seeds x {SYN_EPOCHS} epochs at batch "
+          f"{SYN_BATCH}: --seed_parallel 1 {b_wall:.2f} s against 0 {l_wall:.2f} s "
+          f"({l_wall / b_wall:.2f}x; files and mels included); losses, MCDs and test MCDs "
+          f"within rel {sp_worst(pairs):.3g} of the loop's (by epoch "
+          f"{sp_by_epoch([r[0] for r in batched], [r[0] for r in loop])}); "
+          f"test MCD {summary['mcd_all']}, the loop's {[round(r[1], 3) for r in loop]} "
+          f"[{card}]")
+    if not on_card:
+        return
+    mel_dim = sz["n_mels"] * 20
+    frozen = [init_params(get_classifier_by_name(n, k, sz["cls"], SYN_LENGTH), seed=0)
+              for n, k in (("CNNRNN", N_TONES), ("CNN", N_SYLLS))]
+    proto = SynthesisTrainer(SynthesisModelCNN(mel_dim, sz["non"], SYN_LENGTH), *frozen,
+                             world["config"]["tone_dynamic_mapping"], learning_rate=SYN_LR,
+                             schedule_decay=SYN_DECAY, verbose=False, device=device)
+    seeds = json.loads(summary["seeds"])
+    fit = SeedSynthesisStack(proto, seeds)
+    rng = np.random.default_rng(14)
+    per_seed = [tuple(t.to(device) for t in synthesis_batch(rng, SYN_BATCH, sz))
+                for _ in seeds]
+    batch = [torch.stack(parts) for parts in zip(*per_seed)]
+    total = batch[3].sum(dim=1)
+    def grads():  # one batched backward from the same weights and masks
+        gens = [torch.Generator(device=device).manual_seed(s) for s in seeds]
+        with exact_f32(deterministic=True):
+            return fit.stack.grad_step(batch[:2], _l1_loss, (*batch[2:], total), gens)[0]
+
+    first, second = grads(), grads()
+    check(all(torch.equal(first[k], second[k]) for k in first),
+          "SynthesisFull: two batched gradients of one batch differ under deterministic cuDNN")
+    print("SynthesisFull, 4 seeds batched (grouped convolutions) under deterministic cuDNN: two "
+          "gradients of one batch equal bit for bit")
+    del first, second
+    trainers = [proto.for_seed(s) for s in seeds]
+    for t in trainers:
+        t.init()
+    sp_print_steps(card, "SynthesisFull", SP_SEEDS * SYN_BATCH,
+                   step_profile(lambda: fit.train_step(*batch, total)),
+                   step_profile(lambda: [t.train_step(*b) for t, b in zip(trainers, per_seed)]))
+    del fit, trainers
+    torch.cuda.empty_cache()
+
+
+def sp_fast_bf16(card: str, device: str, sz: dict) -> None:
+    """``configs/fast_bf16.yaml`` through the runner (``bf16_pipeline``'s
+    subject and cut) with ``seed_parallel`` on and off: each run's
+    evaluation rows equal to its training rows; the test predictions
+    flipped between the runs and both walls printed."""
+    import shutil
+
+    from decode_tonal_langauge_tpu_torch.data.synthetic import SyntheticSpec, write_subject
+
+    spec = SyntheticSpec(n_channels=sz["channels"], ecog_sf=PIPE_SF, n_blocks=2,
+                         trials_per_block=sz["trials_per_block"])
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        write_subject(f"{root}/on/raw", 1, spec)
+        shutil.copytree(f"{root}/on/raw", f"{root}/off/raw")
+        for flag in ("on", "off"):
+            config = bf16_pipeline_config(f"{root}/{flag}", sz)
+            config["training"]["params"]["training"]["seed_parallel"] = flag == "on"
+            outputs, fits, wall, _, k1 = run_recorded_pipeline(config, device)
+            check(k1 == 0, f"K1 launched during fast_bf16 with seed_parallel {flag}")
+            rows = read_csv(os.path.join(outputs["training"], "results.csv"))
+            check(read_csv(os.path.join(outputs["evaluation"], "results.csv")) == rows,
+                  f"fast_bf16, seed_parallel {flag}: evaluation rows differ from training's")
+            runs[flag] = (fits, rows, wall)
+    (on, on_rows, on_wall), (off, off_rows, off_wall) = runs["on"], runs["off"]
+    check(sorted(on) == sorted(off), f"fast_bf16 targets {sorted(on)} and {sorted(off)}")
+    flips = {t: {s: int((on[t][s] != off[t][s]).sum()) for s in on[t]} for t in on}
+    print(f"fast_bf16 pipeline, {BF16_SEEDS} seeds x {BF16_EPOCHS} epochs: seed_parallel on "
+          f"{on_wall:.2f} s against off {off_wall:.2f} s ({off_wall / on_wall:.2f}x, all stages);"
+          f" evaluation rows equal to training's in both; test predictions flipped per target "
+          f"and seed {flips}; accuracy_all on "
+          + ", ".join(f"{r['target']} {r['accuracy_all']}" for r in on_rows)
+          + "; off " + ", ".join(f"{r['target']} {r['accuracy_all']}" for r in off_rows)
+          + f" [{card}]")
+
+
+def sp_sharded_fit(task: dict, mesh, device: str) -> list:
+    """A rank's part of the sharded run: the CNN's batched fit with the
+    seed axis over the mesh, under deterministic cuDNN; each seed's
+    history, best epoch, stop, test predictions and a hash of its weights."""
+    import hashlib
+
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.models.factory import get_classifier_by_name
+    from decode_tonal_langauge_tpu_torch.training.seed_parallel import SeedParallelTrainer
+
+    data = np.load(task["stacks"])
+    stacks = [data[f"a{i}"] for i in range(6)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        results = SeedParallelTrainer(
+            get_classifier_by_name("CNN", N_SYLLS, TRAIN_CHANNELS, TRAIN_LENGTH),
+            seeds=task["seeds"], mesh=mesh, seed_chunk=task.get("seed_chunk"),
+            **sp_classifier_kw(N_SYLLS, device)).fit_eval(*stacks)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return [(r.seed, r.history, r.best_epoch, r.stopped_early, r.test_preds.tolist(),
+             hashlib.sha1(b"".join(v.numpy().tobytes() for v in r.params.values())).hexdigest())
+            for r in results]
+
+
+def sp_sharded(card: str, device: str, subject: dict, seeds, batched: list) -> None:
+    """Two ranks sharing the card over gloo, the CNN's SP_SEEDS seeds
+    sharded over them (one batched fit of SP_SEEDS / 2 seeds a rank, no
+    collective a step, the results gathered): every rank's rows, test
+    predictions and weights equal to one process's batched fit of the same
+    seed blocks (``seed_chunk``); its distance from the unchunked fit
+    printed (float32: another grouping of the seeds sums in another
+    order)."""
+    with tempfile.TemporaryDirectory() as root:
+        stacks_path = os.path.join(root, "stacks.npz")
+        np.savez(stacks_path, **{f"a{i}": a for i, a in
+                                 enumerate(sp_stacks(subject, "syllable", seeds))})
+        task = {"stacks": stacks_path, "seeds": seeds}
+        outs, wall = par_launch(os.path.join(root, "launch"), 2, {
+            "device": device, "backend": "gloo", "sizes": {}, "steps": False,
+            "seed_fit": task})
+        want = sp_sharded_fit({**task, "seed_chunk": SP_SEEDS // 2}, None, device)
+    for rank, out in enumerate(outs):
+        check(out["seed_fit"] == want, f"sharded seeds, rank {rank}: rows, predictions or "
+              "weights differ from one process's fit of the same seed blocks")
+        check(out["k1"] == 0, f"K1 launched on rank {rank} of the sharded run")
+    worst, flips = sp_spread([
+        type(b)(seed=s, history=h, best_epoch=be, stopped_early=st, test_true=b.test_true,
+                test_preds=np.asarray(p), n_params=b.n_params)
+        for (s, h, be, st, p, _), b in zip(want, batched)], batched)
+    print(f"sharded seeds: 2 gloo ranks sharing the card, {SP_SEEDS} CNN seeds, "
+          f"{SP_SEEDS // 2} a rank: rows, test predictions and weights on both ranks equal to "
+          f"one process's fit of the same seed blocks; against the unchunked fit rows within "
+          f"rel {worst:.3g}, predictions flipped {flips}; launch {wall:.1f} s [{card}]")
+
+
+def seed_parallel_phase(card: str, device: str = "cuda", sizes: dict = SP_FULL) -> None:
+    """The batched step in float64; SP_SEEDS seeds of the paper's
+    classifiers and of SynthesisFull, the batched fit against the loop;
+    fast_bf16 with seed_parallel on and off; the seed axis sharded over two
+    gloo ranks; K1's launches (none). The rows' faults are reported after
+    every part has run.
+    ``device="cpu", sizes=SP_REHEARSAL`` rehearses it on a CPU (no step
+    timings, no sharded run)."""
+    from decode_tonal_langauge_tpu_torch.ops import cuda_iir
+    from decode_tonal_langauge_tpu_torch.utils.seeding import seed_stream
+
+    cuda_iir.LAUNCHES = 0
+    seeds = [int(s) for s in seed_stream(42, SP_SEEDS)]
+    subject = sp_subject(sizes)
+    failures = []  # the rows' faults, reported after every part has run
+    sp_f64_steps(card, device, sizes, failures)
+    with one_torch_thread():  # the sharded run's ranks draw the weights on one thread
+        batched = sp_classifiers(card, device, subject, seeds, sizes, failures)
+        if device == "cuda":
+            sp_sharded(card, device, subject, seeds, batched["CNN"])
+    sp_synthesizer(card, device, sizes["syn"], failures)
+    sp_fast_bf16(card, device, sizes["pipe"])
+    print(f"K1 launches during the seed-parallel phase: {cuda_iir.LAUNCHES}")
+    check(cuda_iir.LAUNCHES == 0, "K1 launched during the seed-parallel phase")
+    check(not failures, f"{len(failures)} rows off the rule: " + "; ".join(failures[:12]))
 
 
 # The parallel phase: the multi-device layer (``parallel/``) on the card.
@@ -2330,7 +2844,8 @@ def par_pipeline_rows(outputs: dict) -> tuple:
 def parallel_worker(spec_path: str) -> None:
     """One rank of a ``torch.distributed.run`` launch of this script
     (``--parallel-worker <spec.json>``): the steps of each model under a
-    mesh over every rank, and optionally the 2-subject pipeline and the
+    mesh over every rank (unless ``steps`` is false), and optionally the
+    seed-parallel phase's sharded fit, the 2-subject pipeline and the
     serving CLI; writes ``rank<k>.pt`` beside the spec."""
     import datetime
 
@@ -2354,13 +2869,16 @@ def parallel_worker(spec_path: str) -> None:
     cuda_iir.LAUNCHES = 0
     mesh = make_mesh(world)
     out = {"world": world, "backend": dist.get_backend(), "steps": {}}
-    for name, (make, batch_fn) in par_models(spec["sizes"]).items():
+    for name, (make, batch_fn) in (par_models(spec["sizes"]).items()
+                                   if spec.get("steps", True) else ()):
         f64 = par_model_run(make, batch_fn, mesh, device, torch.float64, profile=False)
         f32 = par_model_run(make, batch_fn, mesh, device, torch.float32, profile=True)
         f32.pop("end")
         if rank:
             f64.pop("end")
         out["steps"][name] = {"f32": f32, "f64": f64}
+    if spec.get("seed_fit"):
+        out["seed_fit"] = sp_sharded_fit(spec["seed_fit"], mesh, device)
     if spec.get("pipeline"):
         torch.backends.cudnn.deterministic = True  # the reference run's setting
         t0 = time.perf_counter()
@@ -2641,6 +3159,7 @@ def main() -> None:
     kernels = [timed(k1_phase, card)]
     timed(preprocess_phase, card)
     timed(training_phase, card)
+    timed(seed_parallel_phase, card)
     timed(synthesis_phase, card)
     cuda_iir.LAUNCHES = 0
     timed(serving_phase, card)

@@ -54,7 +54,13 @@ def _lstm_scan(xg: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
 
 class LSTMSequence(torch.autograd.Function):
     """``lstm_sequence`` with the JAX package's backward
-    (``decode_tonal_langauge_tpu/ops/lstm.py:79-141``)."""
+    (``decode_tonal_langauge_tpu/ops/lstm.py:79-141``).
+
+    ``generate_vmap_rule``: under ``torch.func.vmap`` (a seed-batched fit,
+    ``training/seed_stack.py``) forward and backward run once on the
+    batched tensors, every matmul and gate op batched over the seeds."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(x, h0, c0, wi, wh, b):
@@ -76,7 +82,7 @@ class LSTMSequence(torch.autograd.Function):
         hs = out.transpose(0, 1)  # (T, B, H)
         d_hs = d_out.transpose(0, 1)
         wh_t = wh.t()
-        das = d_hs.new_empty((n_t, bsz, 4 * hid))
+        das = []
         dh_next = torch.zeros_like(h0)
         dc_next = torch.zeros_like(c0)
         for t in range(n_t - 1, -1, -1):
@@ -84,14 +90,18 @@ class LSTMSequence(torch.autograd.Function):
             tc = torch.tanh(cs[t])
             dc = dh * o[t] * (1.0 - tc * tc) + dc_next
             cp = cs[t - 1] if t else c0
-            da = das[t]  # pre-activation gate deltas, gate order i, f, g, o
-            da[:, :hid] = dc * g[t] * i[t] * (1.0 - i[t])
-            da[:, hid:2 * hid] = dc * cp * f[t] * (1.0 - f[t])
-            da[:, 2 * hid:3 * hid] = dc * i[t] * (1.0 - g[t] * g[t])
-            da[:, 3 * hid:] = dh * tc * o[t] * (1.0 - o[t])
+            # pre-activation gate deltas, gate order i, f, g, o; no in-place
+            # writes into a preallocated stack: under torch.func.grad those
+            # keep the saved tensors (wh among them) alive after the step
+            da = torch.cat([dc * g[t] * i[t] * (1.0 - i[t]),
+                            dc * cp * f[t] * (1.0 - f[t]),
+                            dc * i[t] * (1.0 - g[t] * g[t]),
+                            dh * tc * o[t] * (1.0 - o[t])], dim=-1)
+            das.append(da)
             dh_next = da @ wh_t
             dc_next = dc * f[t]
 
+        das = torch.stack(das[::-1])  # (T, B, 4H)
         da_flat = das.reshape(n_t * bsz, 4 * hid)
         dx = dwi = dwh = db = None
         if ctx.needs_input_grad[4]:

@@ -37,7 +37,7 @@ from ..utils.metrics import (
     compute_classification_metrics_joint,
 )
 from ..utils.visualise import plot_confusion_matrix
-from .seed_parallel import SeedFitResult, fit_seed
+from .seed_parallel import SeedFitResult, SeedParallelTrainer, fit_seed
 from .trainer import ClassifierTrainer
 
 
@@ -105,6 +105,37 @@ def checkpoint_name(params: Namespace, target_str: str, seed: int) -> str:
     return f"{target_str}_{params.model_name}_{subject}seed_{seed}"
 
 
+def _seed_split(params: Namespace, features: np.ndarray, labels: np.ndarray, seed: int):
+    """One seed's (train x, train y, val x, val y, test x, test y) and
+    the optional per-feature standardisation fit on its train split
+    (stabilises adaptive optimizers on positive-mean envelope features):
+    the scaler ``(mu, sd)``, or None."""
+    tr_idx, va_idx, te_idx = split_indices(
+        features.shape[0],
+        [params.train_ratio, params.vali_ratio, params.test_ratio],
+        seed=seed,
+    )
+    scaler = None
+    if getattr(params, "standardize", False):
+        mu = features[tr_idx].mean(axis=0, keepdims=True)
+        sd = features[tr_idx].std(axis=0, keepdims=True) + 1e-6
+        features = (features - mu) / sd
+        scaler = (mu, sd)
+    split = (features[tr_idx], labels[tr_idx], features[va_idx], labels[va_idx],
+             features[te_idx], labels[te_idx])
+    return split, scaler
+
+
+def _model(params: Namespace, features: np.ndarray, n_classes: int):
+    return get_classifier_by_name(
+        params.model,
+        n_classes=n_classes,
+        n_channels=features.shape[1],
+        seq_length=features.shape[2],
+        classifier_kwargs=getattr(params, "model_kwargs", {}) or {},
+    )
+
+
 def _fit_and_eval(
     params: Namespace,
     features: np.ndarray,
@@ -116,27 +147,8 @@ def _fit_and_eval(
 ) -> SeedFitResult:
     """Split, standardise, train with early stopping, test and predict
     one seed."""
-    tr_idx, va_idx, te_idx = split_indices(
-        features.shape[0],
-        [params.train_ratio, params.vali_ratio, params.test_ratio],
-        seed=seed,
-    )
-    scaler = None
-    if getattr(params, "standardize", False):
-        # Optional per-feature standardisation fit on the train split
-        # (stabilises adaptive optimizers on positive-mean envelope
-        # features).
-        mu = features[tr_idx].mean(axis=0, keepdims=True)
-        sd = features[tr_idx].std(axis=0, keepdims=True) + 1e-6
-        features = (features - mu) / sd
-        scaler = (mu, sd)
-    model = get_classifier_by_name(
-        params.model,
-        n_classes=n_classes,
-        n_channels=features.shape[1],
-        seq_length=features.shape[2],
-        classifier_kwargs=getattr(params, "model_kwargs", {}) or {},
-    )
+    split, scaler = _seed_split(params, features, labels, seed)
+    model = _model(params, features, n_classes)
     trainer = _make_trainer(params, model, n_classes, seed, log_dir)
     # Full train-state checkpointing: training.params.training keys
     # train_state_dir / resume / checkpoint_every.
@@ -145,8 +157,7 @@ def _fit_and_eval(
         target_str = "_".join(getattr(params, "targets", []) or ["target"])
     return fit_seed(
         trainer,
-        features[tr_idx], labels[tr_idx], features[va_idx], labels[va_idx],
-        features[te_idx], labels[te_idx],
+        *split,
         scaler=scaler,
         checkpoint_dir=(
             # checkpoint_name keys the state by (subject, target, model,
@@ -189,18 +200,65 @@ def _fit_eval_all_seeds(
     log_dir_fn,
     target_str: Optional[str] = None,
 ) -> List[SeedFitResult]:
-    """All repeat seeds of one experiment, in seed order, one
-    :func:`_fit_and_eval` each. The JAX stage's ``seed_parallel`` and
-    ``seed_chunk`` keys choose its vmapped multi-seed fit, whose per-seed
-    results equal the sequential ones; the port fits one seed at a time
-    whatever they say."""
+    """All repeat seeds of one experiment, in seed order.
+
+    With ``seed_parallel`` (default on) and more than one seed, every
+    seed's split, standardisation, fit and test run as ONE batched fit
+    (:class:`SeedParallelTrainer`, in chunks of ``seed_chunk`` seeds,
+    its seed axis sharded over a ``parallel:`` mesh), as in the JAX
+    stage. Otherwise, and with ``train_state_dir`` (per-seed
+    checkpoint/resume), the seeds run one at a time through
+    :func:`_fit_and_eval`.
+    """
     features = features.astype(np.float32)
     labels = labels.astype(np.int32)
-    return [
-        _fit_and_eval(params, features, labels, n_classes, int(seed),
-                      log_dir_fn(int(seed)), target_str=target_str)
-        for seed in seeds
-    ]
+    seeds = [int(s) for s in seeds]
+
+    # train_state_dir (full-state checkpoint/resume) forces the
+    # sequential per-seed path: the batched multi-seed fit has no
+    # per-seed resume granularity.
+    use_seed_parallel = (
+        getattr(params, "seed_parallel", True)
+        and len(seeds) > 1
+        and not getattr(params, "train_state_dir", None)
+    )
+    if (
+        not use_seed_parallel
+        and getattr(params, "seed_parallel", True)
+        and len(seeds) > 1
+        and getattr(params, "train_state_dir", None)
+    ):
+        print(
+            "train_state_dir set: per-seed checkpoint/resume requires the "
+            "sequential trainer, so seed_parallel is disabled for this run"
+        )
+    if not use_seed_parallel:
+        return [_fit_and_eval(params, features, labels, n_classes, seed, log_dir_fn(seed),
+                              target_str=target_str)
+                for seed in seeds]
+
+    # --- seed-parallel path: per-seed split gathers stacked on axis 0 ---
+    splits, scalers = zip(*(_seed_split(params, features, labels, seed) for seed in seeds))
+    spt = SeedParallelTrainer(
+        _model(params, features, n_classes),
+        n_classes=n_classes,
+        seeds=seeds,
+        learning_rate=params.lr,
+        weight_decay=float(getattr(params, "weight_decay", 0.0)),
+        batch_size=params.batch_size,
+        max_epochs=params.epochs,
+        patience=params.patience,
+        verbose=getattr(params, "verbose", 1) > 1,
+        moment_dtype=getattr(params, "moment_dtype", None),
+        device=getattr(params, "device", None),
+        mesh=getattr(params, "mesh", None),
+        seed_chunk=getattr(params, "seed_chunk", None),
+    )
+    results = spt.fit_eval(*(np.stack(part) for part in zip(*splits)))
+    for res, scaler in zip(results, scalers):
+        res.scaler = scaler
+        spt.write_logs(res, log_dir_fn(res.seed))
+    return results
 
 
 def record_label_space(params: Namespace, n_classes_dict: Dict[str, int]) -> None:

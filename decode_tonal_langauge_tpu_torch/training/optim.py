@@ -25,6 +25,12 @@ dtype at rest; each step widens them to float32, updates in float32 and
 rounds the new moments back (JAX ``with_moment_dtype``). By default the
 moments take each parameter's dtype, and float64 parameters update in
 float64.
+
+:class:`SeedNAdam` runs the same update on seed-stacked tensors (a
+leading axis of S seeds, ``training/seed_stack.py``): the decay mask is
+taken from each tensor's per-seed shape, as the JAX package's mask sees
+unbatched shapes inside ``vmap``, so a stacked bias (ndim 2) is not
+decayed.
 """
 
 from __future__ import annotations
@@ -36,9 +42,10 @@ import torch
 from torch import nn
 
 
-def decay_mask(params: Sequence[torch.Tensor]) -> List[bool]:
-    """True for parameters that receive weight decay (ndim >= 2)."""
-    return [p.ndim >= 2 for p in params]
+def decay_mask(params: Sequence[torch.Tensor], seed_axis: bool = False) -> List[bool]:
+    """True for parameters that receive weight decay (ndim >= 2, not
+    counting a leading seed axis)."""
+    return [p.ndim - int(seed_axis) >= 2 for p in params]
 
 
 def _moment_dtype(dtype) -> Optional[torch.dtype]:
@@ -59,6 +66,8 @@ class NAdam:
     parameters of :func:`decay_mask`, or every parameter with
     ``decay_all``."""
 
+    seed_axis = False  # SeedNAdam: every tensor leads with a seed axis
+
     def __init__(
         self,
         params: Union[nn.Module, Iterable[torch.Tensor]],
@@ -77,7 +86,8 @@ class NAdam:
         self.weight_decay = weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
         self.moment_dtype = _moment_dtype(moment_dtype)
-        self.decay = [True] * len(self.params) if decay_all else decay_mask(self.params)
+        self.decay = ([True] * len(self.params) if decay_all
+                      else decay_mask(self.params, self.seed_axis))
         dtype = lambda p: self.moment_dtype or p.dtype  # noqa: E731
         self.mu = [torch.zeros_like(p, dtype=dtype(p)) for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=dtype(p)) for p in self.params]
@@ -117,3 +127,20 @@ class NAdam:
                     f"fit a moment of {tuple(dst.shape)} {dst.dtype}"
                 )
             dst.copy_(src)
+
+
+class SeedNAdam(NAdam):
+    """:class:`NAdam` on seed-stacked tensors (S, ...), with the per-seed
+    decay mask of the module docstring. Every seed in the stacks steps at
+    each :meth:`step`, so ``count`` is each seed's own step count; a seed
+    that stops leaves the stacks (:meth:`select`), and neither its weights
+    nor its moments move again."""
+
+    seed_axis = True
+
+    def select(self, params: Sequence[torch.Tensor], keep: torch.Tensor) -> None:
+        """Keep the seeds at indices ``keep`` (a long tensor): the stacks
+        now hold ``params``, those seeds' rows in that order."""
+        self.params = list(params)
+        self.mu = [m[keep.to(m.device)] for m in self.mu]
+        self.nu = [v[keep.to(v.device)] for v in self.nu]

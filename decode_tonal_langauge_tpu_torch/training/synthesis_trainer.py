@@ -53,13 +53,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.func import vmap
 
 from ..data.utils import tone_dynamics_table
 from ..models.base import init_params
 from ..ops.dropout import set_dropout_generator
 from ..parallel.mesh import DataParallelLayout
 from ..runtime.device import DeviceLike, exact_f32, resolve_device
-from .optim import NAdam
+from .optim import NAdam, SeedNAdam
+from .seed_stack import SeedStack
 from .trainer import accept_jax_only
 
 _DB = 10.0 / math.log(10.0)
@@ -98,6 +100,14 @@ def _with_output_bias(model: nn.Module, target_mean) -> nn.Module:
         "target_mean init: no known output head (output_layer/fc2) in "
         f"{type(model).__name__}"
     )
+
+
+def _l1_loss(out: torch.Tensor, targets: torch.Tensor, w: torch.Tensor,
+             total: torch.Tensor) -> torch.Tensor:
+    """The weighted mean over samples of ``mean |out - target|`` over the
+    mel axis; ``total`` is the (global) batch's ``sum(w)``."""
+    l1 = (out - targets).abs().mean(dim=1)
+    return (l1 * w).sum() / total.clamp_min(1.0)
 
 
 def _padded_weights(n: int, batch_size: int) -> np.ndarray:
@@ -206,11 +216,14 @@ class SynthesisTrainer:
         parameter (decay unmasked) and fresh generators."""
         self.model.to(self.device)
         self._weights = list(self.model.parameters())
-        c = self._config
-        self.optimizer = NAdam(self._weights, c["learning_rate"], c["schedule_decay"],
-                               b1=c["beta_1"], b2=c["beta_2"], eps=c["epsilon"],
-                               moment_dtype=c["moment_dtype"], decay_all=True)
+        self.optimizer = self._new_optimizer(self._weights)
         self._reset_generators()
+
+    def _new_optimizer(self, params, kind=NAdam) -> NAdam:
+        c = self._config
+        return kind(params, c["learning_rate"], c["schedule_decay"], b1=c["beta_1"],
+                    b2=c["beta_2"], eps=c["epsilon"], moment_dtype=c["moment_dtype"],
+                    decay_all=True)
 
     def _reset_generators(self) -> None:
         self._perm_gen = torch.Generator().manual_seed(self.seed)
@@ -277,9 +290,8 @@ class SynthesisTrainer:
         self.model.train()
         with exact_f32(deterministic=True):
             out = self.model(x_non, labels)
-            l1 = (out - targets).abs().mean(dim=1)
             total = w.sum() if w_total is None else w_total
-            loss = (l1 * w).sum() / total.clamp_min(1.0)
+            loss = _l1_loss(out, targets, w, total)
             grads = torch.autograd.grad(loss, self._weights)
             with torch.no_grad():
                 mcd = _mcd(targets, out, w, total)
@@ -435,23 +447,24 @@ def fit_eval_seed(
     return history, mcd, recon, origin
 
 
-def seed_parallel_fit_eval(
+def seed_loop_fit_eval(
     proto: SynthesisTrainer,
     seeds,
     train_stacks: Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray],
     test_stacks: Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray],
     epochs: int,
     batch_size: int = 8,
-    target_means=None,  # (S, output_dim) per-seed train-mel means, or None
+    target_means=None,
+    train_state_dirs: Optional[Sequence[str]] = None,
+    **train_kwargs,
 ):
-    """All repeat seeds of one experiment, with the JAX package's API.
-
-    JAX fits the seeds as one vmapped computation; here they run one at a
-    time (``proto.for_seed``, then :func:`fit_eval_seed`), so each seed's
-    result is exactly that of a sequential trainer with that seed. The
-    stacks carry a leading seed axis. Returns a list over seeds of
-    (history, mcd, recon_mels, origin_mels); each seed's trained state
-    dict is left in ``proto.seed_params``."""
+    """The seeds one at a time, each a :meth:`SynthesisTrainer.for_seed`
+    copy of ``proto`` through :func:`fit_eval_seed`, so each seed's result
+    is exactly a sequential trainer's: :func:`seed_parallel_fit_eval`'s
+    arguments and return value, and ``proto.seed_params``. This is the
+    path for a mesh (each seed's fit data-parallel) and for per-seed train
+    states (``train_state_dirs[s]`` as the seed's ``checkpoint_dir``;
+    ``train_kwargs`` go to :meth:`SynthesisTrainer.train`)."""
     seeds = [int(s) for s in seeds]
     if train_stacks[0].shape[0] != len(seeds):
         raise ValueError(f"{train_stacks[0].shape[0]} seed slices for {len(seeds)} seeds")
@@ -461,7 +474,114 @@ def seed_parallel_fit_eval(
         results.append(fit_eval_seed(
             trainer, [a[i] for a in train_stacks], [a[i] for a in test_stacks],
             epochs, batch_size, None if target_means is None else target_means[i],
-            verbose=False,
+            checkpoint_dir=None if train_state_dirs is None else train_state_dirs[i],
+            **train_kwargs,
         ))
         proto.seed_params.append(trainer.params)
+    return results
+
+
+class SeedSynthesisStack:
+    """The seeds of one synthesis experiment as one stack: each seed's
+    synthesis model (initialised as :meth:`SynthesisTrainer.init`
+    initialises that seed, its output bias from ``target_means[s]``), its
+    NAdam moments and its generators, on ``proto``'s device; ``proto``
+    holds the configuration and the frozen classifiers."""
+
+    def __init__(self, proto: SynthesisTrainer, seeds, target_means=None) -> None:
+        if proto.mesh is not None:
+            raise ValueError("a batched fit of the seeds runs on one device: build the "
+                             "trainer with mesh=None")
+        self.proto = proto
+        self.seeds = [int(s) for s in seeds]
+        self.stack = SeedStack(
+            [_with_output_bias(init_params(copy.deepcopy(proto.model), s),
+                               None if target_means is None else target_means[i])
+             for i, s in enumerate(self.seeds)], proto.device)
+        self.optimizer = proto._new_optimizer(list(self.stack.params.values()), kind=SeedNAdam)
+        self.perm_gens = [torch.Generator().manual_seed(s) for s in self.seeds]
+        self.dropout_gens = [torch.Generator(device=proto.device).manual_seed(s)
+                             for s in self.seeds]
+
+    def device_data(self, train_stacks, batch_size: int) -> List[torch.Tensor]:
+        """Each seed's padded train set and its frozen-classifier label
+        dynamics (computed once per seed), stacked: (x, labels, y, w)."""
+        per_seed = [self.proto._device_data(tuple(a[i] for a in train_stacks), batch_size)
+                    for i in range(len(self.seeds))]
+        return [torch.stack([getattr(d, f) for d in per_seed]) for f in ("x", "labels", "y", "w")]
+
+    def train_step(self, x_non: torch.Tensor, labels: torch.Tensor, targets: torch.Tensor,
+                   w: torch.Tensor, w_total: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One NAdam step of every seed on its batch (each argument with a
+        leading seed axis), under deterministic cuDNN; returns the (S,)
+        losses and MCDs, as :meth:`SynthesisTrainer.train_step` per seed."""
+        with exact_f32(deterministic=True):
+            grads, loss, out = self.stack.grad_step((x_non, labels), _l1_loss,
+                                                    (targets, w, w_total), self.dropout_gens)
+            with torch.no_grad():
+                mcd = vmap(_mcd)(targets, out, w, w_total)
+            self.optimizer.step([grads[k] for k in self.stack.params])
+        return loss, mcd
+
+    def epoch(self, perms: torch.Tensor, data: List[torch.Tensor],
+              batch_size: int) -> torch.Tensor:
+        """One epoch of every seed, seed s in the order ``perms[s]``;
+        returns the (S, 2) device tensor of (mean batch loss, mean batch
+        MCD)."""
+        n_seeds, n = perms.shape
+        idx = perms.reshape(n_seeds, n // batch_size, batch_size)
+        rows = torch.arange(n_seeds, device=perms.device)[:, None, None]
+        batches = [t[rows, idx] for t in data]
+        totals = batches[3].sum(dim=2)
+        losses, mcds = zip(*(self.train_step(*(t[:, b] for t in batches), totals[:, b])
+                             for b in range(idx.shape[1])))
+        return torch.stack([torch.stack(losses, 1).mean(1), torch.stack(mcds, 1).mean(1)], 1)
+
+
+def seed_parallel_fit_eval(
+    proto: SynthesisTrainer,
+    seeds,
+    train_stacks: Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray],
+    test_stacks: Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray],
+    epochs: int,
+    batch_size: int = 8,
+    target_means=None,  # (S, output_dim) per-seed train-mel means, or None
+):
+    """All repeat seeds of one synthesis experiment as ONE batched fit,
+    the JAX package's ``seed_parallel_fit_eval``: a
+    :class:`SeedSynthesisStack` of the seeds, one forward and one backward
+    of every seed a step, each seed's permutations and dropout masks from
+    its own generators as :meth:`SynthesisTrainer.train` draws them.
+    ``proto`` (built with ``mesh=None``: the seed axis is the parallel
+    axis here) holds the configuration and the frozen classifiers; the
+    stacks carry a leading seed axis (``(ecog_non, ecog_syll, ecog_tone,
+    mels)``, equal sizes across seeds).
+
+    After the fit each seed's test set runs through
+    :meth:`SynthesisTrainer.evaluate` on its trained weights, as
+    ``train_synthesizer --evaluate_only`` and serving recompute it from the
+    checkpoint, so their rows agree exactly (a batched forward sums in
+    another order). Returns a list over seeds of (history, mcd,
+    recon_mels, origin_mels); each seed's trained state dict is left in
+    ``proto.seed_params``."""
+    seeds = [int(s) for s in seeds]
+    if train_stacks[0].shape[0] != len(seeds):
+        raise ValueError(f"{train_stacks[0].shape[0]} seed slices for {len(seeds)} seeds")
+    fit = SeedSynthesisStack(proto, seeds, target_means)
+    data = fit.device_data(train_stacks, batch_size)
+    n = data[0].shape[1]
+    history = [fit.epoch(torch.stack([torch.randperm(n, generator=g) for g in fit.perm_gens])
+                         .to(proto.device), data, batch_size)
+               for _ in range(epochs)]
+    history = (torch.stack(history, 1).cpu().numpy() if history  # the fit's one read
+               else np.zeros((len(seeds), 0, 2), np.float32))
+
+    proto.seed_params, results = [], []
+    evaluator = proto.for_seed(seeds[0])
+    evaluator.model.to(proto.device)
+    for i in range(len(seeds)):
+        proto.seed_params.append(fit.stack.state_dict(i))
+        evaluator.model.load_state_dict(proto.seed_params[i])
+        mcd, recon, origin = evaluator.evaluate(tuple(a[i] for a in test_stacks), batch_size)
+        results.append(([(float(loss), float(m)) for loss, m in history[i]], mcd, recon, origin))
     return results

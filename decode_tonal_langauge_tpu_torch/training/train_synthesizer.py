@@ -19,10 +19,12 @@ Runs on ``--device`` (default the CUDA card, and it raises without one).
 over N ranks, one per card, launched with ``torchrun --nproc_per_node N
 -m decode_tonal_langauge_tpu_torch.training.train_synthesizer ...``
 (``parallel/``); rank 0 writes the checkpoints, the results row, the
-figures and the WAVs. The JAX stage's ``--seed_parallel`` and
-``--no_compilation_cache`` are accepted and change nothing: the seeds run
-one at a time with results equal to a sequential fit's, and there is no
-compile cache. ``--dtype bfloat16`` builds the
+figures and the WAVs. With ``--seed_parallel 1`` (the default) and more
+than one seed, every seed is fitted in one batched fit
+(``synthesis_trainer.seed_parallel_fit_eval``); a mesh,
+``--train_state_dir`` and ``--evaluate_only`` run the seeds one at a time,
+as the JAX stage does. ``--no_compilation_cache`` is accepted and changes
+nothing: there is no compile cache. ``--dtype bfloat16`` builds the
 synthesizer computing in bfloat16 (parameters float32); the frozen
 classifiers stay float32. Config JSON keys: ``mel_kwargs``, ``tone_dynamic_mapping``,
 ``n_syllables``, ``n_tones``.
@@ -48,7 +50,7 @@ from ..runtime.device import resolve_device
 from ..utils.audio import audio_to_mel, compare_mels, mels_to_audio, write_wav
 from ..utils.visualise import plot_training_losses
 from .classifier_pipeline import _append_rows
-from .synthesis_trainer import SynthesisTrainer, fit_eval_seed
+from .synthesis_trainer import SynthesisTrainer, seed_loop_fit_eval, seed_parallel_fit_eval
 
 __all__ = ["build_parser", "build_classifier", "build_synthesis_model", "run", "main"]
 
@@ -101,8 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--repeat", type=int, default=1)
     parser.add_argument(
         "--seed_parallel", type=int, default=1,
-        help="Accepted for the JAX stage's CLI; the port fits the seeds one "
-             "at a time either way.",
+        help="Fit all repeat seeds as one batched fit (1, default) or loop "
+             "seeds sequentially (0). A mesh, --train_state_dir and "
+             "--evaluate_only use the loop.",
     )
     parser.add_argument("--verbose", type=int, default=1)
     # ----- Training -----
@@ -214,15 +217,9 @@ def _split_ratios(params: argparse.Namespace) -> list:
 
 
 def _note_jax_only_flags(params: argparse.Namespace) -> None:
-    """One line naming the JAX stage's flags that change nothing here."""
-    given = [flag for flag, on in (
-        ("--seed_parallel", bool(getattr(params, "seed_parallel", 1))
-         and getattr(params, "repeat", 1) > 1),
-        ("--no_compilation_cache", bool(getattr(params, "no_compilation_cache", False))),
-    ) if on]
-    if given:
-        print(f"{', '.join(given)}: accepted, but the port fits one seed at a time "
-              "and compiles nothing; ignoring")
+    """One line naming the JAX stage's flag that changes nothing here."""
+    if getattr(params, "no_compilation_cache", False):
+        print("--no_compilation_cache: accepted, but the port compiles nothing; ignoring")
 
 
 def _figures(params, history, origin_mels, recon_mels, n_mels: int) -> None:
@@ -329,15 +326,23 @@ def run(params: argparse.Namespace) -> dict:
         return os.path.join(root, f"{params.synthesis_model_name}_seed_{int(seed)}")
 
     arrays = (ecog_non, ecog_syllables, ecog_tones, mels)
+    splits = [split_indices(ecog_non.shape[0], ratios, seed=int(seed)) for seed in seeds]
+    test_stacks = tuple(np.stack([a[s[-1]] for s in splits]) for a in arrays)
+    trainer = make_trainer(int(seeds[0]))
+    # All repeat seeds as one batched fit, under the JAX stage's rule: a
+    # mesh keeps the loop (each seed's fit data-parallel), and so do
+    # per-seed train states (the batched fit has no per-seed resume).
     train_state_dir = getattr(params, "train_state_dir", None)
-    tm_init = bool(getattr(params, "target_mean_init", True))
-    per_seed = []
-    for seed in seeds:
-        splits = split_indices(ecog_non.shape[0], ratios, seed=int(seed))
-        tr_idx, te_idx = splits[0], splits[-1]
-        trainer = make_trainer(int(seed))
-        test = tuple(a[te_idx] for a in arrays)
-        if evaluate_only:
+    seed_parallel = (
+        bool(getattr(params, "seed_parallel", True))
+        and len(seeds) > 1
+        and mesh is None
+        and not train_state_dir
+        and not evaluate_only
+    )
+    if evaluate_only:
+        per_seed = []
+        for i, seed in enumerate(seeds):
             path = ckpt_path(params.checkpoint_dir, seed)
             if not os.path.exists(path):
                 raise FileNotFoundError(
@@ -345,23 +350,31 @@ def run(params: argparse.Namespace) -> dict:
                     "--checkpoint_dir first (and the same --seed/--repeat so the "
                     "seed streams line up)."
                 )
-            trainer.load_checkpoint(path)
-            per_seed.append((None,) + trainer.evaluate(test, batch_size=params.batch_size))
-            continue
-        per_seed.append(fit_eval_seed(
-            trainer, tuple(a[tr_idx] for a in arrays), test, params.epochs,
-            batch_size=params.batch_size,
-            target_mean=mels[tr_idx].mean(axis=0) if tm_init else None,
-            verbose=params.verbose > 1,
-            checkpoint_dir=ckpt_path(train_state_dir, seed) if train_state_dir else None,
-            resume=bool(getattr(params, "resume", False)),
-            checkpoint_every=getattr(params, "checkpoint_every", None),
-        ))
+            seed_trainer = trainer.for_seed(int(seed))
+            seed_trainer.load_checkpoint(path)
+            per_seed.append((None,) + seed_trainer.evaluate(
+                tuple(a[i] for a in test_stacks), batch_size=params.batch_size))
+    else:
+        train_stacks = tuple(np.stack([a[s[0]] for s in splits]) for a in arrays)
+        target_means = (np.stack([mels[s[0]].mean(axis=0) for s in splits])
+                        if getattr(params, "target_mean_init", True) else None)
+        fit_args = (trainer, seeds, train_stacks, test_stacks, params.epochs,
+                    params.batch_size, target_means)
+        if seed_parallel:
+            per_seed = seed_parallel_fit_eval(*fit_args)
+        else:
+            per_seed = seed_loop_fit_eval(
+                *fit_args, verbose=params.verbose > 1,
+                train_state_dirs=([ckpt_path(train_state_dir, s) for s in seeds]
+                                  if train_state_dir else None),
+                resume=bool(getattr(params, "resume", False)),
+                checkpoint_every=getattr(params, "checkpoint_every", None))
         if getattr(params, "checkpoint_dir", None) and writer:
             from ..runtime.checkpoint import save_checkpoint
 
             os.makedirs(params.checkpoint_dir, exist_ok=True)
-            save_checkpoint(ckpt_path(params.checkpoint_dir, seed), trainer.model)
+            for seed, state in zip(seeds, trainer.seed_params):
+                save_checkpoint(ckpt_path(params.checkpoint_dir, seed), state)
 
     mcds, pearson_rs = [], []
     for seed, (_, mcd, recon_mels, origin_mels) in zip(seeds, per_seed):

@@ -88,10 +88,11 @@ def _stack_batches(x: np.ndarray, y: np.ndarray, batch_size: int):
 def _class_counts(preds: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                   n_classes: int):
     """(support, correct): the weighted count of each class in the batch
-    and of its correct predictions."""
-    onehot = F.one_hot(y, n_classes).to(w.dtype) * w[:, None]
-    support = onehot.sum(dim=0)
-    correct = (onehot * (preds == y).to(w.dtype)[:, None]).sum(dim=0)
+    and of its correct predictions (over the last axis of ``y``, so
+    seed-stacked batches give one pair each)."""
+    onehot = F.one_hot(y, n_classes).to(w.dtype) * w[..., None]
+    support = onehot.sum(dim=-2)
+    correct = (onehot * (preds == y).to(w.dtype)[..., None]).sum(dim=-2)
     return support, correct
 
 
@@ -188,10 +189,8 @@ def write_confusion_csv(path: str, cm: np.ndarray) -> None:
 
 # Keys of the JAX trainers' constructors that change nothing here:
 # ``scan_unroll`` unrolls the JAX batch scan, a compiler knob whose
-# histories are identical by design (batches run in a Python loop here);
-# ``seed_chunk`` bounds the seeds of one vmapped fit (seeds run one at a
-# time here).
-JAX_ONLY_KEYS = frozenset({"scan_unroll", "seed_chunk"})
+# histories are identical by design (batches run in a Python loop here).
+JAX_ONLY_KEYS = frozenset({"scan_unroll"})
 
 
 def accept_jax_only(keys: Dict[str, Any]) -> None:

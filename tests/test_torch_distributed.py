@@ -92,17 +92,17 @@ NEAR_ZERO_GRAD, MAX_STEP = 1e-6, 1.5
 
 # ----------------------------------------------------------------------
 # Spawning ranks.
-def _spawn(tmp, world, inputs, env=None):
-    """Run :func:`_worker` in ``world`` processes (rank r runs every case
-    of ``inputs``); returns each rank's outputs. A non-zero exit or a
-    timeout fails the test."""
+def _spawn(tmp, world, inputs, env=None, module="test_torch_distributed"):
+    """Run ``module``'s ``_worker`` (this one's: :func:`_worker`) in
+    ``world`` processes (rank r runs every case of ``inputs``); returns
+    each rank's outputs. A non-zero exit or a timeout fails the test."""
     os.makedirs(tmp, exist_ok=True)
     torch.save(inputs, os.path.join(tmp, "inputs.pt"))
     base = {k: v for k, v in os.environ.items() if k not in _LAUNCH_ENV}
     base.update(OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join([TESTS, ROOT]))
     procs = []
     for rank in range(world):
-        code = ("import test_torch_distributed as t; "
+        code = (f"import {module} as t; "
                 f"t._worker({rank}, {world}, {str(tmp)!r})")
         procs.append(subprocess.Popen(
             [sys.executable, "-c", code], cwd=tmp,
@@ -125,7 +125,10 @@ def _spawn(tmp, world, inputs, env=None):
             for r in range(world)]
 
 
-def _worker(rank, world, tmp):
+def _worker(rank, world, tmp, cases=None):
+    """One rank: join the group and run each case of the inputs from
+    ``cases`` (default :data:`_CASES`)."""
+    cases = _CASES if cases is None else cases
     torch.set_num_threads(1)
     inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
     timeout = datetime.timedelta(seconds=SPAWN_TIMEOUT_S)
@@ -134,7 +137,7 @@ def _worker(rank, world, tmp):
     else:
         distributed.initialize(f"file://{tmp}/store", world, rank, device="cpu",
                                timeout=timeout)
-    out = {name: _CASES[name](rank, world, case) for name, case in inputs["cases"].items()}
+    out = {name: cases[name](rank, world, case) for name, case in inputs["cases"].items()}
     torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
     dist.destroy_process_group()
 

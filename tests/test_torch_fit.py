@@ -255,14 +255,16 @@ def test_seed_loop_equals_sequential_trainer(seed_chunk):
 
 
 def test_jax_only_keys_change_nothing(capsys):
-    """The JAX trainer's scan_unroll and seed_chunk are accepted and change
-    no result, as does mesh=None (the one-device layout; a mesh makes the
-    fit data-parallel, tests/test_torch_distributed.py); any other key is
-    refused."""
+    """The JAX trainer's scan_unroll is accepted and changes no result, as
+    does mesh=None (the one-device layout; a mesh makes the fit
+    data-parallel, tests/test_torch_distributed.py); any other key is
+    refused, seed_chunk too: as in JAX it is SeedParallelTrainer's, where
+    it bounds a batched fit (tests/test_torch_seed_parallel.py)."""
     x, y = _separable_data(np.random.default_rng(4), n=64)
     plain = _trainer(_dropout_mlp(), 3).fit(x[:48], y[:48], x[48:], y[48:])
-    keyed = _trainer(_dropout_mlp(), 3, mesh=None, scan_unroll=4, seed_chunk=2)
+    keyed = _trainer(_dropout_mlp(), 3, mesh=None, scan_unroll=4)
     assert capsys.readouterr().out == ""
     _equal_fits(plain, keyed.fit(x[:48], y[:48], x[48:], y[48:]))
-    with pytest.raises(TypeError, match="no_such_key"):
-        _trainer(_dropout_mlp(), 3, no_such_key=1)
+    for key in ("no_such_key", "seed_chunk"):
+        with pytest.raises(TypeError, match=key):
+            _trainer(_dropout_mlp(), 3, **{key: 1})

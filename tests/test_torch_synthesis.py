@@ -62,7 +62,7 @@ from decode_tonal_langauge_tpu_torch.training.synthesis_trainer import (
     SynthesisTrainer,
     _with_output_bias,
     compute_mcd,
-    seed_parallel_fit_eval,
+    seed_loop_fit_eval,
 )
 from decode_tonal_langauge_tpu_torch.utils.audio import compare_mels
 from decode_tonal_langauge_tpu_torch.utils.visualise import plot_training_losses
@@ -380,8 +380,8 @@ def test_seed_loop_equals_sequential_trainers():
     test = tuple(np.stack([a[s[1]] for s in splits]) for a in data)
     target_means = train[3].mean(axis=1)
     proto = _port_trainer()
-    results = seed_parallel_fit_eval(proto, seeds, train, test, epochs=3, batch_size=8,
-                                     target_means=target_means)
+    results = seed_loop_fit_eval(proto, seeds, train, test, epochs=3, batch_size=8,
+                                 target_means=target_means, verbose=False)
     for i, (seed, (hist, mcd, recon, origin)) in enumerate(zip(seeds, results)):
         t = _port_trainer(seed=seed)
         want = t.train(tuple(a[i] for a in train), epochs=3, verbose=False,
@@ -542,11 +542,13 @@ def test_stage_flags(stage_world, tmp_path, capsys):
 
 def test_train_state_dir_resume_through_the_stage(stage_world, tmp_path):
     """--train_state_dir/--resume/--checkpoint_every through the stage:
-    2 epochs then a resume to 3 equal the straight 3-epoch fit's rows."""
+    2 epochs then a resume to 3 equal the straight 3-epoch fit's rows. A
+    train state runs the seed loop, so the straight fit runs it too
+    (--seed_parallel 0; the batched fit sums in another order)."""
     _, paths = stage_world
     parse = train_synthesizer.build_parser().parse_args
     straight = train_synthesizer.run(parse(_stage_args(
-        paths, tmp_path / "a", "port", "--device", "cpu")))
+        paths, tmp_path / "a", "port", "--device", "cpu", "--seed_parallel", "0")))
     ts = str(tmp_path / "b" / "states")
     common = ("--device", "cpu", "--train_state_dir", ts, "--checkpoint_every", "1")
     args = _stage_args(paths, tmp_path / "b", "port", *common)
