@@ -143,7 +143,20 @@ present, or when the port's sources are not beside it.
    mels within 1e-5; (e) with two or more cards, (b)'s steps over NCCL
    one rank per card (skipped, with a note, on one card). Every launch has
    a timeout; K1 0 launches in every process.
-11. Prints each phase's wall time, the ``kernels`` JSON line, then the
+11. Demo phase: ``scripts/demo_end_to_end_torch.py`` (the port's
+   one-command demo: synthetic subject -> YAML pipeline with per-target
+   logistic / shallow-MLP classifiers over 2 batched seeds, evaluation
+   and visualisation -> ``train_synthesizer`` (SynthesisLite) -> the
+   serving CLI on epochs -> the serving CLI streaming a block) run in this
+   process on the card, at the demo's own widths, in a fresh directory.
+   Checks the file layout (no figures without matplotlib), every CSV
+   finite, the stream's windows, the 23 WAVs at 800 Hz, evaluation rows
+   equal to training's; loads the demo's checkpoints on the CPU through
+   ``serving.load_decoder`` and decodes the same epochs: ids equal to the
+   card's where the top-2 margin exceeds 1e-4, mels within rtol/atol
+   1e-3; K1 0 launches; prints each step's wall beside the card's name
+   and power limit.
+12. Prints each phase's wall time, the ``kernels`` JSON line, then the
    final ``ok`` JSON line.
 """
 
@@ -3122,6 +3135,164 @@ def nccl_phase(card: str, sizes: dict = PAR_FULL) -> None:
     check(k1 == 0, "K1 launched during the NCCL ranks")
 
 
+# The demo phase: scripts/demo_end_to_end_torch.py, the port's one-command
+# demo, at its own widths (12 channels, 2 x 48 trials at 400 Hz, logistic +
+# shallow MLP, SynthesisLite, n_mels 16). Each glob under its workdir and
+# the files it matches; DEMO_FILES counts every file but figures and
+# TensorBoard event files (the card's machine has neither matplotlib nor
+# tensorboardX).
+DEMO_LAYOUT = {
+    "raw/Sub1/HS1-B*/raw.npz": 2,
+    "raw/annotations/subject_1/B*.TextGrid": 2,
+    "processed/*/subject_1/B*_*.npz": 4,
+    "samples/*__*/subject_1.npz": 1,
+    "channel_selection/*/subject_1.json": 1,
+    "logs/logistic__*/results.csv": 1,
+    "logs/logistic__*/evaluation/results.csv": 1,
+    "logs/logistic__*/model_checkpoints/*": 4,
+    "logs/logistic__*/*_csv/subject_1/seed_*/metrics.csv": 4,
+    "synth/results.csv": 1,
+    "synth/ckpt/SynthesisLite_seed_*": 1,
+    "synth/wavs/*.wav": 20,
+    "decoded/predictions.csv": 1,
+    "decoded/mels.npz": 1,
+    "decoded/decoded_*.wav": 2,
+    "streamed/windows.csv": 1,
+    "streamed/events.csv": 1,
+    "streamed/mels.npz": 1,
+    "streamed/decoded_w*.wav": 1,
+}
+DEMO_FILES = 68
+DEMO_SR = 800
+
+
+def demo_check_files(root: str) -> None:
+    """The layout, every CSV's numbers finite, the WAVs' rate and count,
+    evaluation's rows equal to training's."""
+    import glob
+    import importlib.util
+
+    from scipy.io import wavfile
+
+    files = sorted(os.path.relpath(os.path.join(d, f), root)
+                   for d, _, names in os.walk(root) for f in names)
+    figures = [f for f in files if f.endswith(".png")]
+    events = [f for f in files if os.path.basename(f).startswith("events.out.tfevents.")]
+    for pattern, n in DEMO_LAYOUT.items():
+        got = glob.glob(os.path.join(root, pattern))
+        check(len(got) == n and all(os.path.isfile(p) for p in got),
+              f"demo: {len(got)} files match {pattern}, not {n}")
+    check(len(files) - len(figures) - len(events) == DEMO_FILES,
+          f"demo: {len(files) - len(figures) - len(events)} files, not {DEMO_FILES}")
+    if importlib.util.find_spec("matplotlib") is None:
+        check(not figures, f"demo: figures without matplotlib: {figures[:3]}")
+    for rel in (f for f in files if f.endswith(".csv")):
+        for row in read_csv(os.path.join(root, rel)):
+            for key, value in row.items():
+                try:
+                    number = float(value)
+                except (TypeError, ValueError):
+                    continue
+                check(np.isfinite(number), f"demo: {rel} {key} = {value}")
+    wavs = [f for f in files if f.endswith(".wav")]
+    for rel in wavs:
+        rate, wave = wavfile.read(os.path.join(root, rel))
+        check(rate == DEMO_SR and wave.size > 0 and np.isfinite(wave).all(),
+              f"demo: {rel} rate {rate}, {wave.size} samples")
+    (logs,) = glob.glob(os.path.join(root, "logs", "logistic__*"))
+    check(read_csv(os.path.join(logs, "evaluation", "results.csv"))
+          == read_csv(os.path.join(logs, "results.csv")),
+          "demo: evaluation rows differ from training's")
+    print(f"demo files: {len(files)} ({len(figures)} figures, {len(events)} TensorBoard files), "
+          f"{len(wavs)} WAVs at {DEMO_SR} Hz, every CSV finite, evaluation rows equal "
+          f"to training's")
+
+
+def demo_card_vs_cpu(root: str, run: dict, device: str) -> None:
+    """The demo's checkpoints loaded on the CPU through the flags the
+    serving CLI recovered from the training run, decoding the demo's
+    epochs: ids equal to the card's ``decoded/`` where the top-2 margin
+    exceeds 1e-4, mels within rtol/atol 1e-3 (the serving phase's rules)."""
+    from decode_tonal_langauge_tpu_torch import serving
+
+    path = lambda rel: os.path.join(root, rel)  # noqa: E731
+    sample = path(os.path.join(run["outputs"]["sample_collection"], "subject_1.npz"))
+    params = serving.build_parser().parse_args(
+        ["--sample_path", sample, "--training_dir", path(run["outputs"]["training"]),
+         "--config_file", path("synth_config.json"), "--synthesis_model_name",
+         "SynthesisLite", "--synthesis_model_path", path(run["synth_ckpt"]),
+         "--output_dir", path("decoded_cpu"), "--device", "cpu"])
+    serving._configure_from_training_dir(params)
+    with open(path(os.path.join(run["outputs"]["channel_selection"], "subject_1.json"))) as f:
+        channels = json.load(f)
+    with open(params.config_file) as f:
+        config = json.load(f)
+    ecog = np.load(sample)["ecog"]
+    decoder = serving.load_decoder(
+        channels, config, ecog.shape[2], params.tone_model_name, params.tone_model_path,
+        params.syllable_model_name, params.syllable_model_path,
+        synthesis_model_name="SynthesisLite", synthesis_model_path=params.synthesis_model_path,
+        tone_model_kwargs=params.tone_model_kwargs,
+        syllable_model_kwargs=params.syllable_model_kwargs, device="cpu")
+    ref = decoder.decode(ecog, channels)
+    rows = read_csv(path("decoded/predictions.csv"))
+    check(len(rows) == ecog.shape[0], f"demo: {len(rows)} decoded rows for {ecog.shape[0]}")
+    for key in ("tone", "syllable"):
+        got = np.array([int(r[f"{key}_pred"]) for r in rows])
+        top2 = np.sort(ref[f"{key}_probs"], axis=1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > 1e-4
+        check((got[clear] == ref[key][clear]).all(),
+              f"demo: {key} ids differ between {device} and cpu on "
+              f"{int((got[clear] != ref[key][clear]).sum())} trials")
+        print(f"demo {key}: ids equal on {int(clear.sum())}/{len(got)} trials with a clear "
+              f"top-2 margin ({device} vs cpu)")
+    mel = np.load(path("decoded/mels.npz"))["mel"]
+    check(mel.shape == ref["mel"].shape and np.allclose(mel, ref["mel"], rtol=1e-3, atol=1e-3),
+          f"demo: mels differ: {mel.shape} vs {ref['mel'].shape}, "
+          f"{np.abs(mel - ref['mel']).max() if mel.shape == ref['mel'].shape else 'n/a'}")
+    print(f"demo mel {mel.shape}: max abs diff {np.abs(mel - ref['mel']).max():.3g} "
+          f"({device} vs cpu)")
+
+
+def demo_phase(card: str, device: str = "cuda") -> None:
+    """``scripts/demo_end_to_end_torch.py`` in this process on the card
+    (its default device) in a fresh directory: K1's launches, the files,
+    the card's epoch decode against the CPU's on the demo's checkpoints,
+    and each step's wall."""
+    import importlib.util
+
+    from decode_tonal_langauge_tpu_torch.ops import cuda_iir
+
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "demo_end_to_end_torch.py")
+    spec = importlib.util.spec_from_file_location("demo_end_to_end_torch", script)
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "demo_run")
+        argv = [root] + ([] if device == "cuda" else ["--device", device])
+        cuda_iir.LAUNCHES = 0
+        t0 = time.perf_counter()
+        run = demo.main(argv)
+        wall = time.perf_counter() - t0
+        k1 = cuda_iir.LAUNCHES
+        print(f"K1 launches during the demo phase: {k1}")
+        check(k1 == 0, "K1 launched during the demo")
+        stream = run["stream"]
+        check(stream["n_windows"] > 0 and len(read_csv(os.path.join(
+            root, "streamed", "windows.csv"))) == stream["n_windows"],
+            f"demo: stream summary {stream}")
+        check(run["epochs"]["n_trials"] == 96, f"demo: epoch summary {run['epochs']}")
+        demo_check_files(root)
+        demo_card_vs_cpu(root, run, device)
+        walls = ", ".join(f"{k} {v:.2f} s" for k, v in run["walls"].items())
+        print(f"demo steps: {walls}; main() {wall:.2f} s; tone accuracy "
+              f"{run['epochs']['tone_accuracy']:.3f}, syllable "
+              f"{run['epochs']['syllable_accuracy']:.3f}, synthesis MCD "
+              f"{run['synthesizer']['mcd_mean']:.1f}, {stream['n_windows']} windows, "
+              f"{stream['n_events']} events [{card}]")
+
+
 def main() -> None:
     import torch
 
@@ -3167,6 +3338,7 @@ def main() -> None:
     timed(pipeline_phase, card)
     timed(bf16_phase, card)
     timed(parallel_phase, card)
+    timed(demo_phase, card)
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,12 @@ package (nor flax, optax, sklearn, pandas, matplotlib or tensorboardX,
 which the card's machine lacks), and its entry points default to CUDA
 instead of falling back to the CPU: serving, preprocessing, classifier
 and synthesizer training, sample extraction, channel selection,
-evaluation and the pipeline runner. Without matplotlib the visualisation
-stage makes no figures and returns None."""
+evaluation, the pipeline runner and the end-to-end demo
+(``scripts/demo_end_to_end_torch.py``, which raises before it writes
+anything). The port's scripts ``scripts/demo_end_to_end_torch.py`` and
+``scripts/generate_synthetic_data_torch.py`` import without JAX too.
+Without matplotlib the visualisation stage makes no figures and returns
+None."""
 
 import os
 import subprocess
@@ -33,6 +37,12 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
+import importlib.util
+scripts = {}
+for script in ("demo_end_to_end_torch", "generate_synthetic_data_torch"):
+    spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
+    scripts[script] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(scripts[script])  # imported, main not run
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED
             and sys.modules[m] is not None]
 
@@ -65,6 +75,8 @@ model = get_classifier_by_name("logistic", 2, 2, 4)
 synth = build_synthesis_model("SynthesisLite", 8, 2, 4)
 synth_data = [np.zeros((4, 2, 4), np.float32)] * 3 + [np.zeros((4, 8), np.float32)]
 steps = [{"module": "channel_zscore"}]
+import os, tempfile
+demo_dir = os.path.join(tempfile.mkdtemp(), "demo_run")
 calls = [
     lambda: resolve_device(None),
     lambda: TonalDecoder(model, model, {"0": [0.0]}),
@@ -87,6 +99,7 @@ calls = [
     lambda: discriminative.run({}, {}),
     lambda: evaluation_main.run({"evaluation": {"params": {}}}),
     lambda: pipeline.run_pipeline({}),
+    lambda: scripts["demo_end_to_end_torch"].main([demo_dir]),
 ]
 for call in calls:
     try:
@@ -95,6 +108,7 @@ for call in calls:
         assert "CUDA" in str(e), e
     else:
         raise AssertionError("an entry point ran without a card")
+assert not os.path.exists(demo_dir)  # the demo raised before writing anything
 assert str(TonalDecoder(model, model, {"0": [0.0]}, device="cpu").device) == "cpu"
 trainer = SynthesisTrainer(synth, model, model, {"0": [0.0], "1": [1.0]}, verbose=False,
                            device="cpu")

@@ -6,7 +6,9 @@ the JAX package's ``SeedParallelTrainer``.
   fit (logistic, shallow, ``CNNClassifier(3, 128, 4)``, a CNN-RNN of input
   length 40 and lstm_dim 80; dropout on in the deep models), one seed's
   validation labels scrambled so that it stops early while another runs
-  to the end: JAX's own tolerances (``tests/test_seed_parallel.py``),
+  to the end (``tests/test_torch_seed_parallel_fit.py`` and
+  ``tests/test_torch_seed_parallel_rnn.py`` hold it, with this file's
+  helpers): JAX's own tolerances (``tests/test_seed_parallel.py``),
   history rows within rel 2e-3 / abs 2e-4, best epoch and early stop
   equal, at most 2 test predictions flipped. A grouped convolution or a
   batched matmul sums in another float32 order than one seed's, so the
@@ -88,6 +90,18 @@ ROW_TOL = dict(rel=2e-3, abs=2e-4)  # tests/test_seed_parallel.py:65-85
 MAPPING = {"0": [5, 5, 5], "1": [3, 4, 5], "2": [3, 2, 3], "3": [5, 3, 1]}
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test, as the gloo ranks run: the suite runs
+    several workers at once, and torch's default of one thread per core
+    then oversubscribes the machine, which slows these fits' many small
+    operations by an order of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _separable(rng, n, c, t, n_classes):
     y = rng.integers(0, n_classes, n).astype(np.int32)
     x = rng.standard_normal((n, c, t)).astype(np.float32)
@@ -128,24 +142,10 @@ _MODELS = {  # port model, (C, T), classes, lr
 
 
 # ----------------------------------------------------------------------
-# (a) the batched fit against the loop
-@pytest.mark.parametrize("name", list(_MODELS))
-def test_batched_fit_equals_the_seed_loop(name):
-    model_fn, (c, t), n_classes, lr = _MODELS[name]
-    x, y = _separable(np.random.default_rng(0), 40, c, t, n_classes)
-    stacks = _stacks(x, y, SEEDS, scramble=(0,))  # 24 train rows: 2 batches of 16
-    kw = dict(n_classes=n_classes, learning_rate=lr, weight_decay=0.01, batch_size=16,
-              max_epochs=3, patience=0, device="cpu")
-    got = SeedParallelTrainer(model_fn(), seeds=SEEDS, **kw).fit_eval(*stacks)
-    for i, (seed, res) in enumerate(zip(SEEDS, got)):
-        t = ClassifierTrainer(model_fn(), seed=seed, **kw)
-        _assert_rows_close(res, t.fit(*(a[i] for a in stacks[:4])))
-        assert (res.test_preds != t.predict(stacks[4][i])).sum() <= 2
-        np.testing.assert_array_equal(res.test_true, stacks[5][i])
-        assert res.n_params == t.n_params() and list(res.params) == list(t.params)
-    assert got[0].stopped_early and not got[-1].stopped_early
-
-
+# (a) the batched fit against the loop: test_batched_fit_equals_the_seed_loop
+# is in tests/test_torch_seed_parallel_fit.py (logistic, shallow, CNN) and
+# tests/test_torch_seed_parallel_rnn.py (CNN-RNN), so that --dist loadfile
+# gives its deep-model cases workers of their own.
 def test_batched_fit_starts_from_the_loop_weights_and_masks():
     """Seed s of the stack starts from ClassifierTrainer.init's weights for
     seed s, and its dropout masks are the ones its own forward draws."""
@@ -426,13 +426,9 @@ def test_two_ranks_shard_the_seed_axis(tmp_path):
         "synthesizer_mesh": {"args": world_args + ["--result_file",
                                                    str(tmp_path / "mesh.csv")]},
     }}, module="test_torch_seed_parallel")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # as the ranks run
-    try:
-        one = SeedParallelTrainer(_dropout_mlp(), seeds=SEEDS, **_SHARD_KW).fit_eval(
-            *_shard_stacks())
-    finally:
-        torch.set_num_threads(threads)
+    # one thread (the autouse fixture), as the ranks run
+    one = SeedParallelTrainer(_dropout_mlp(), seeds=SEEDS, **_SHARD_KW).fit_eval(
+        *_shard_stacks())
     assert any(r.stopped_early for r in one) and not all(r.stopped_early for r in one)
     for out in outs:
         got = out["seed_shard"]

@@ -72,6 +72,17 @@ C_NON, C_CLS, T, MEL = 5, 3, 64, 32
 MODEL_TOL = dict(atol=2e-5, rtol=1e-5)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread per test: the suite runs several workers at
+    once, and torch's default of one thread per core then oversubscribes
+    the machine."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(v):
     return jax.tree_util.tree_map(np.asarray, v)
 
