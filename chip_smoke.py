@@ -156,7 +156,18 @@ present, or when the port's sources are not beside it.
    card's where the top-2 margin exceeds 1e-4, mels within rtol/atol
    1e-3; K1 0 launches; prints each step's wall beside the card's name
    and power limit.
-12. Prints each phase's wall time, the ``kernels`` JSON line, then the
+12. Parity phase: ``scripts/measure_parity_torch.py`` (the port's
+   quality-parity harness) in this process on the card, on the easy
+   subject (32 channels, 4 blocks x 40 trials, noise 1.0) in a fresh
+   directory: the pipeline stages, the ``cnn`` cell (the paper CNN,
+   syllables) at 4 seeds x 30 epochs and the ``synth_lite`` cell at 2
+   seeds x 10 epochs (with its frozen logistic classifiers). Checks the
+   saturated-cell rule for ``cnn`` (every seed at least 0.96, as every
+   JAX seed in PARITY.json scores 1.0) and, for ``synth_lite``, a finite
+   MCD and mel Pearson r with r above 0.5; K1 0 launches (recorded on the
+   kernels line as "parity phase"); prints each step's wall beside the
+   card's name and power limit.
+13. Prints each phase's wall time, the ``kernels`` JSON line, then the
    final ``ok`` JSON line.
 """
 
@@ -3293,6 +3304,61 @@ def demo_phase(card: str, device: str = "cuda") -> None:
               f"{stream['n_events']} events [{card}]")
 
 
+# The parity phase's cut of scripts/measure_parity_torch.py: the cnn cell
+# at PARITY_CNN_SEEDS x its 30 epochs, synth_lite at PARITY_SYNTH seeds x
+# epochs (the harness: 48 and 12 seeds, 60 SynthesisLite epochs).
+PARITY_CNN_SEEDS = 4
+PARITY_SYNTH = dict(seeds=2, epochs=10)
+PARITY_SYNTH_MIN_R = 0.5
+
+
+def parity_phase(card: str, device: str = "cuda") -> int:
+    """``scripts/measure_parity_torch.py`` in this process on the card on
+    the easy subject: the ``cnn`` cell under the saturated-cell rule,
+    ``synth_lite`` with a finite MCD and r > PARITY_SYNTH_MIN_R, K1's
+    launches (returned; they must be 0) and the walls."""
+    import importlib.util
+
+    from decode_tonal_langauge_tpu_torch.ops import cuda_iir
+
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "measure_parity_torch.py")
+    spec = importlib.util.spec_from_file_location("measure_parity_torch", script)
+    harness = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(harness)
+    flag = [] if device == "cuda" else ["--device", device]
+    with tempfile.TemporaryDirectory() as tmp:
+        cuda_iir.LAUNCHES = 0
+        t0 = time.perf_counter()
+        harness.main(["--workdir", tmp, "--only", "cnn", "--seeds",
+                      str(PARITY_CNN_SEEDS)] + flag)
+        res = harness.main(["--workdir", tmp, "--only", "synth_lite", "--seeds",
+                            str(PARITY_SYNTH["seeds"])] + flag,
+                           synth_lite_epochs=PARITY_SYNTH["epochs"])
+        wall = time.perf_counter() - t0
+    k1 = cuda_iir.LAUNCHES
+    print(f"K1 launches during the parity phase: {k1}")
+    check(k1 == 0, "K1 launched during the parity phase")
+    accs = res["cnn"]["accuracy_all"]
+    cmp = res["comparison"]["cnn"]
+    check(len(accs) == PARITY_CNN_SEEDS and cmp["saturated"]
+          and min(accs) >= harness.SATURATED_MIN and cmp["verdict"] == "within",
+          f"parity: cnn accuracies {accs} break the saturated-cell rule "
+          f"(min >= {harness.SATURATED_MIN}): {cmp['reasons']}")
+    synth = res["synth_lite"]
+    mcd, r = synth["mcd_mean"], synth["mel_pearson_r_mean"]
+    check(np.isfinite(mcd) and np.isfinite(r) and r > PARITY_SYNTH_MIN_R,
+          f"parity: synth_lite MCD {mcd}, r {r} (r must exceed {PARITY_SYNTH_MIN_R})")
+    print(f"parity cnn ({PARITY_CNN_SEEDS} seeds x {res['cnn']['epochs']} epochs): "
+          f"accuracies {accs}, {cmp['verdict']} the saturated rule; synth_lite "
+          f"({PARITY_SYNTH['seeds']} seeds x {synth['epochs']} epochs): MCD {mcd:.1f}, "
+          f"r {r:.4f}, per-seed MCD {synth['mcd_all']}")
+    print(f"parity walls: pipeline {res['pipeline_wall_s']:.2f} s, cnn "
+          f"{res['cnn']['wall_s']:.2f} s, synth_lite {synth['wall_s']:.2f} s, phase "
+          f"{wall:.2f} s (label classifiers and files included) [{card}]")
+    return k1
+
+
 def main() -> None:
     import torch
 
@@ -3339,6 +3405,7 @@ def main() -> None:
     timed(bf16_phase, card)
     timed(parallel_phase, card)
     timed(demo_phase, card)
+    kernels[0]["phase_launches"] = {"parity phase": timed(parity_phase, card)}
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -58,6 +58,21 @@ def namespace_to_dict(ns: Any) -> Any:
     return ns
 
 
+def append_data_json(output_file: str, output_data: dict) -> None:
+    """Merge ``output_data`` into the JSON object in ``output_file``
+    (a missing or unreadable file counts as empty) and write it back."""
+    existing = {}
+    if os.path.exists(output_file):
+        with open(output_file, "r") as f:
+            try:
+                existing = json.load(f)
+            except json.JSONDecodeError:
+                pass
+    existing.update(output_data)
+    with open(output_file, "w") as f:
+        json.dump(existing, f, indent=4)
+
+
 def update_configuration(
     output_path: str,
     previous_config_path: str,

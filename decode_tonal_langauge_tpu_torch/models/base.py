@@ -1,5 +1,5 @@
-"""Model base utilities: shape math, activations, seeded initialisation,
-and the compute-dtype helpers.
+"""Model base utilities: shape math, activations, parameter counts,
+seeded initialisation, and the compute-dtype helpers.
 
 Counterpart of ``decode_tonal_langauge_tpu/models/base.py``. A model's
 ``dtype`` is its compute dtype, as a Flax module's ``dtype`` field: the
@@ -14,7 +14,7 @@ lists and would also cast the float32 class heads.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -105,8 +105,21 @@ def get_activation(name: str, **kwargs) -> Callable[[torch.Tensor], torch.Tensor
     return table[name]
 
 
+# The standard deviation of a unit normal cut at +-2 sigma: Flax's
+# ``variance_scaling`` divides by it so the truncated draw keeps unit
+# variance.
+_TRUNCATED_STD = 0.87962566103423978
+
+
 def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
-    w.copy_(torch.randn(w.shape, generator=g) / math.sqrt(fan_in))
+    """Flax's ``lecun_normal()``: a unit normal truncated to [-2, 2], drawn
+    as ``jax.random.truncated_normal`` draws it (uniforms between
+    erf(-sqrt 2) and erf(sqrt 2) mapped through sqrt(2) erfinv), scaled by
+    ``1 / sqrt(fan_in) / _TRUNCATED_STD``."""
+    edge = math.erf(math.sqrt(2.0))
+    u = torch.rand(w.shape, generator=g, dtype=torch.float64) * (2 * edge) - edge
+    z = (math.sqrt(2.0) * torch.erfinv(u)).clamp_(-2.0, 2.0)
+    w.copy_(z / (math.sqrt(fan_in) * _TRUNCATED_STD))
 
 
 def _orthogonal(n: int, g: torch.Generator) -> torch.Tensor:
@@ -114,10 +127,41 @@ def _orthogonal(n: int, g: torch.Generator) -> torch.Tensor:
     return q * torch.sign(torch.diagonal(r))
 
 
+_BN_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def _state(params: Union[nn.Module, Mapping[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """Trainable tensors by state-dict key: a module's parameters, or a
+    state dict without its batch-norm buffers (Flax keeps those apart,
+    in ``batch_stats``)."""
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return {k: v for k, v in params.items() if k.rsplit(".", 1)[-1] not in _BN_BUFFERS}
+
+
+def count_params(params: Union[nn.Module, Mapping[str, torch.Tensor]]) -> int:
+    """Total number of trainable parameters of a module or a state dict."""
+    return int(sum(v.numel() for v in _state(params).values()))
+
+
+def layer_param_counts(
+    params: Union[nn.Module, Mapping[str, torch.Tensor]]
+) -> Dict[str, int]:
+    """Parameter count per top-level child under the JAX package's module
+    names (``convs.0`` counts as ``convs_0``), the reference's
+    ``get_layer_nparams``."""
+    counts: Dict[str, int] = {}
+    for key, value in _state(params).items():
+        parts = key.split(".")
+        name = f"{parts[0]}_{parts[1]}" if len(parts) > 2 and parts[1].isdigit() else parts[0]
+        counts[name] = counts.get(name, 0) + value.numel()
+    return counts
+
+
 @torch.no_grad()
 def init_params(module: nn.Module, seed: int) -> nn.Module:
-    """Seeded random weights with Flax's default schemes: LeCun-normal
-    kernels, orthogonal recurrent kernels (per gate), zero biases, unit
+    """Seeded random weights with Flax's default schemes: truncated
+    LeCun-normal kernels, orthogonal recurrent kernels (per gate), zero biases, unit
     BatchNorm scale. Drawn on the CPU from one ``torch.Generator``, so a
     seed gives the same weights on every device."""
     g = torch.Generator().manual_seed(seed)

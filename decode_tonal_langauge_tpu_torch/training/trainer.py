@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..data.splits import split_indices
 from ..models.base import init_params
 from ..ops.dropout import set_dropout_generator
 from ..parallel.mesh import DataParallelLayout
@@ -484,3 +485,10 @@ class ClassifierTrainer:
             write_confusion_csv(os.path.join(self.log_dir, "confusion_matrix_test.csv"),
                                 out["confusion_matrix"])
         return out
+
+
+def train_val_test_split(
+    n: int, train_ratio: float, val_ratio: float, test_ratio: float, seed: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """70/10/20-style split with the reference's size rules."""
+    return tuple(split_indices(n, [train_ratio, val_ratio, test_ratio], seed))

@@ -3,10 +3,12 @@ package (nor flax, optax, sklearn, pandas, matplotlib or tensorboardX,
 which the card's machine lacks), and its entry points default to CUDA
 instead of falling back to the CPU: serving, preprocessing, classifier
 and synthesizer training, sample extraction, channel selection,
-evaluation, the pipeline runner and the end-to-end demo
-(``scripts/demo_end_to_end_torch.py``, which raises before it writes
-anything). The port's scripts ``scripts/demo_end_to_end_torch.py`` and
-``scripts/generate_synthetic_data_torch.py`` import without JAX too.
+evaluation, the pipeline runner, the end-to-end demo
+(``scripts/demo_end_to_end_torch.py``) and the quality-parity harness
+(``scripts/measure_parity_torch.py``), both of which raise before they
+write anything. The port's scripts ``scripts/demo_end_to_end_torch.py``,
+``scripts/generate_synthetic_data_torch.py`` and
+``scripts/measure_parity_torch.py`` import without JAX too.
 Without matplotlib the visualisation stage makes no figures and returns
 None."""
 
@@ -39,7 +41,8 @@ for name in names:
 import chip_smoke  # noqa: F401
 import importlib.util
 scripts = {}
-for script in ("demo_end_to_end_torch", "generate_synthetic_data_torch"):
+for script in ("demo_end_to_end_torch", "generate_synthetic_data_torch",
+               "measure_parity_torch"):
     spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
     scripts[script] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(scripts[script])  # imported, main not run
@@ -77,6 +80,7 @@ synth_data = [np.zeros((4, 2, 4), np.float32)] * 3 + [np.zeros((4, 8), np.float3
 steps = [{"module": "channel_zscore"}]
 import os, tempfile
 demo_dir = os.path.join(tempfile.mkdtemp(), "demo_run")
+parity_dir = os.path.join(tempfile.mkdtemp(), "parity_run")
 calls = [
     lambda: resolve_device(None),
     lambda: TonalDecoder(model, model, {"0": [0.0]}),
@@ -100,6 +104,7 @@ calls = [
     lambda: evaluation_main.run({"evaluation": {"params": {}}}),
     lambda: pipeline.run_pipeline({}),
     lambda: scripts["demo_end_to_end_torch"].main([demo_dir]),
+    lambda: scripts["measure_parity_torch"].main(["--workdir", parity_dir]),
 ]
 for call in calls:
     try:
@@ -109,6 +114,7 @@ for call in calls:
     else:
         raise AssertionError("an entry point ran without a card")
 assert not os.path.exists(demo_dir)  # the demo raised before writing anything
+assert not os.path.exists(parity_dir)  # and so did the parity harness
 assert str(TonalDecoder(model, model, {"0": [0.0]}, device="cpu").device) == "cpu"
 trainer = SynthesisTrainer(synth, model, model, {"0": [0.0], "1": [1.0]}, verbose=False,
                            device="cpu")

@@ -20,9 +20,20 @@ from decode_tonal_langauge_tpu_torch.training.seed_parallel import SeedParallelT
 from decode_tonal_langauge_tpu_torch.training.trainer import ClassifierTrainer
 
 
+# The seed of each case's data. Rows are held in float32, where a
+# validation trial on a near-tie flips under the batched fit's reordered
+# sums (the rules' docstring), so a case's data must leave its fits no
+# near-tie. The CNN's data seed 0 no longer does since the initial
+# weights follow Flax's truncated draw: seed 42's validation trials come
+# within a top-2 margin of 5.6e-4, one flips at epoch 2 while the losses
+# agree within rel 1.2e-4. Seed 3's data leave every fit a margin of at
+# least 0.055.
+DATA_SEEDS = {"cnn": 3}
+
+
 def check_batched_fit_equals_the_seed_loop(name):
     model_fn, (c, t), n_classes, lr = _MODELS[name]
-    x, y = _separable(np.random.default_rng(0), 40, c, t, n_classes)
+    x, y = _separable(np.random.default_rng(DATA_SEEDS.get(name, 0)), 40, c, t, n_classes)
     stacks = _stacks(x, y, SEEDS, scramble=(0,))  # 24 train rows: 2 batches of 16
     kw = dict(n_classes=n_classes, learning_rate=lr, weight_decay=0.01, batch_size=16,
               max_epochs=3, patience=0, device="cpu")
