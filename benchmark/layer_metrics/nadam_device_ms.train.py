@@ -1,0 +1,9 @@
+"""Device milliseconds of the operations a train step launches under the
+port's ``optim.nadam`` span (``training/optim.py``), in the step traced
+with the host's ops; from ``torch.profiler``."""
+
+from benchmark.harness.spans import device_ms
+
+
+def read(m):
+    return device_ms(m, lambda name: name == "optim.nadam")

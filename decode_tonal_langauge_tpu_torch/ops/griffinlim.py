@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..runtime.profiling import span
 from .stft import istft, stft
 
 
@@ -20,19 +21,20 @@ def nnls_project(A: torch.Tensor, B: torch.Tensor, n_iter: int = 100) -> torch.T
     """Nonnegative least squares ``min ||A X - B||`` by Nesterov projected
     gradient with step 1/||A^T A||_2 (power-iteration estimate).
     ``A``: (m, n); ``B``: (..., m, k) -> (..., n, k)."""
-    AtA = A.T @ A
-    AtB = A.T @ B
-    v = torch.ones(AtA.shape[0], dtype=A.dtype, device=A.device)
-    v = v / np.sqrt(AtA.shape[0])
-    for _ in range(30):
-        v = AtA @ v
-        v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-12)
-    step = 1.0 / torch.clamp(v @ (AtA @ v), min=1e-12)
+    with span("audio.nnls_setup"):
+        AtA = A.T @ A
+        AtB = A.T @ B
+        v = torch.ones(AtA.shape[0], dtype=A.dtype, device=A.device)
+        v = v / np.sqrt(AtA.shape[0])
+        for _ in range(30):
+            v = AtA @ v
+            v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-12)
+        step = 1.0 / torch.clamp(v @ (AtA @ v), min=1e-12)
 
-    # JAX's pinv default cutoff: 10 * max(m, n) * eps of the largest
-    # singular value.
-    rtol = 10.0 * max(A.shape) * torch.finfo(A.dtype).eps
-    X = torch.clamp(torch.linalg.pinv(A, rtol=rtol) @ B, min=0.0)
+        # JAX's pinv default cutoff: 10 * max(m, n) * eps of the largest
+        # singular value.
+        rtol = 10.0 * max(A.shape) * torch.finfo(A.dtype).eps
+        X = torch.clamp(torch.linalg.pinv(A, rtol=rtol) @ B, min=0.0)
     Y = X
     t = np.float32(1.0)  # the momentum sequence in f32, as in JAX
     for _ in range(n_iter):

@@ -30,6 +30,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..runtime.profiling import span
+
 
 def _lstm_scan(xg: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                wh: torch.Tensor, keep: bool):
@@ -64,8 +66,9 @@ class LSTMSequence(torch.autograd.Function):
 
     @staticmethod
     def forward(x, h0, c0, wi, wh, b):
-        xg = torch.einsum("bti,ih->bth", x, wi) + b  # all timesteps at once
-        out, (cs, i, f, g, o) = _lstm_scan(xg, h0, c0, wh, keep=True)
+        with span("lstm.forward"):
+            xg = torch.einsum("bti,ih->bth", x, wi) + b  # all timesteps at once
+            out, (cs, i, f, g, o) = _lstm_scan(xg, h0, c0, wh, keep=True)
         return out, cs, i, f, g, o
 
     @staticmethod
@@ -82,37 +85,39 @@ class LSTMSequence(torch.autograd.Function):
         hs = out.transpose(0, 1)  # (T, B, H)
         d_hs = d_out.transpose(0, 1)
         wh_t = wh.t()
-        das = []
-        dh_next = torch.zeros_like(h0)
-        dc_next = torch.zeros_like(c0)
-        for t in range(n_t - 1, -1, -1):
-            dh = d_hs[t] + dh_next
-            tc = torch.tanh(cs[t])
-            dc = dh * o[t] * (1.0 - tc * tc) + dc_next
-            cp = cs[t - 1] if t else c0
-            # pre-activation gate deltas, gate order i, f, g, o; no in-place
-            # writes into a preallocated stack: under torch.func.grad those
-            # keep the saved tensors (wh among them) alive after the step
-            da = torch.cat([dc * g[t] * i[t] * (1.0 - i[t]),
-                            dc * cp * f[t] * (1.0 - f[t]),
-                            dc * i[t] * (1.0 - g[t] * g[t]),
-                            dh * tc * o[t] * (1.0 - o[t])], dim=-1)
-            das.append(da)
-            dh_next = da @ wh_t
-            dc_next = dc * f[t]
+        with span("lstm.reverse"):
+            das = []
+            dh_next = torch.zeros_like(h0)
+            dc_next = torch.zeros_like(c0)
+            for t in range(n_t - 1, -1, -1):
+                dh = d_hs[t] + dh_next
+                tc = torch.tanh(cs[t])
+                dc = dh * o[t] * (1.0 - tc * tc) + dc_next
+                cp = cs[t - 1] if t else c0
+                # pre-activation gate deltas, gate order i, f, g, o; no in-place
+                # writes into a preallocated stack: under torch.func.grad those
+                # keep the saved tensors (wh among them) alive after the step
+                da = torch.cat([dc * g[t] * i[t] * (1.0 - i[t]),
+                                dc * cp * f[t] * (1.0 - f[t]),
+                                dc * i[t] * (1.0 - g[t] * g[t]),
+                                dh * tc * o[t] * (1.0 - o[t])], dim=-1)
+                das.append(da)
+                dh_next = da @ wh_t
+                dc_next = dc * f[t]
 
-        das = torch.stack(das[::-1])  # (T, B, 4H)
-        da_flat = das.reshape(n_t * bsz, 4 * hid)
-        dx = dwi = dwh = db = None
-        if ctx.needs_input_grad[4]:
-            h_prev = torch.cat([h0[None], hs[:-1]], dim=0)
-            dwh = h_prev.reshape(n_t * bsz, hid).t() @ da_flat
-        if ctx.needs_input_grad[3]:
-            dwi = x.transpose(0, 1).reshape(n_t * bsz, -1).t() @ da_flat
-        if ctx.needs_input_grad[5]:
-            db = da_flat.sum(dim=0)
-        if ctx.needs_input_grad[0]:
-            dx = (das @ wi.t()).transpose(0, 1)  # (T,B,4H)@(4H,I) -> (B,T,I)
+        with span("lstm.weight_grads"):
+            das = torch.stack(das[::-1])  # (T, B, 4H)
+            da_flat = das.reshape(n_t * bsz, 4 * hid)
+            dx = dwi = dwh = db = None
+            if ctx.needs_input_grad[4]:
+                h_prev = torch.cat([h0[None], hs[:-1]], dim=0)
+                dwh = h_prev.reshape(n_t * bsz, hid).t() @ da_flat
+            if ctx.needs_input_grad[3]:
+                dwi = x.transpose(0, 1).reshape(n_t * bsz, -1).t() @ da_flat
+            if ctx.needs_input_grad[5]:
+                db = da_flat.sum(dim=0)
+            if ctx.needs_input_grad[0]:
+                dx = (das @ wi.t()).transpose(0, 1)  # (T,B,4H)@(4H,I) -> (B,T,I)
         return dx, dh_next, dc_next, dwi, dwh, db
 
 
@@ -129,8 +134,9 @@ def lstm_sequence(
     inputs = (x, h0, c0, wi, wh, b)
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         return LSTMSequence.apply(*inputs)[0]
-    xg = torch.einsum("bti,ih->bth", x, wi) + b
-    return _lstm_scan(xg, h0, c0, wh, keep=False)[0]
+    with span("lstm.forward"):
+        xg = torch.einsum("bti,ih->bth", x, wi) + b
+        return _lstm_scan(xg, h0, c0, wh, keep=False)[0]
 
 
 class TimeBatchedLSTM(nn.Module):

@@ -18,8 +18,10 @@ The stages split their subjects or blocks between the ranks, and the
 (``parallel/mesh.py``).
 
 A top-level ``profiling`` section: ``trace_dir`` runs every stage inside
-a ``torch.profiler`` trace (a Chrome trace file per stage), ``timing:
-true`` (the default) prints each stage's wall time at the end. The
+a ``torch.profiler`` trace (a Chrome trace file per stage, holding the
+port's layer spans), ``timing: true`` (the default) prints each stage's
+wall time at the end, then the five layer spans with the most self time
+(``runtime/profiling.py``). The
 ``compilation_cache`` section is accepted with a note: the port compiles
 nothing.
 
@@ -103,6 +105,10 @@ def run_pipeline(config_path_or_dict, device: DeviceLike = None) -> Dict[str, st
     if timer.spans and profiling_cfg.get("timing", True):
         print("----------- Stage timing -----------")
         print(timer.summary())
+        layers = timer.layers(5)
+        if layers:
+            print("----------- Layer spans, most self time -----------")
+            print(layers)
 
     return stage_outputs
 

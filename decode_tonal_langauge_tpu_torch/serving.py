@@ -48,7 +48,6 @@ import argparse
 import csv
 import json
 import os
-import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -62,6 +61,7 @@ from .parallel.distributed import initialize, process_index
 from .parallel.mesh import DataParallelLayout, fetch_global, mesh_from_config
 from .runtime.checkpoint import load_checkpoint, save_checkpoint  # noqa: F401
 from .runtime.device import DeviceLike, exact_f32, resolve_device
+from .runtime.profiling import recording, span
 
 _DISCRIMINATIVE = ["tone_discriminative", "syllable_discriminative"]
 
@@ -112,22 +112,25 @@ class TonalDecoder:
     @torch.no_grad()
     def _decode(self, x_tone, x_syll, ecog_non):
         with exact_f32():
-            if self.tone_scaler is not None:
-                mu, sd = self.tone_scaler
-                x_tone = (x_tone - mu) / sd
-            if self.syllable_scaler is not None:
-                mu, sd = self.syllable_scaler
-                x_syll = (x_syll - mu) / sd
-            tone_probs = self.tone_model(x_tone)
-            syll_probs = self.syllable_model(x_syll)
-            tones = torch.argmax(tone_probs, dim=1)
-            sylls = torch.argmax(syll_probs, dim=1)
+            with span("decoder.tone"):
+                if self.tone_scaler is not None:
+                    mu, sd = self.tone_scaler
+                    x_tone = (x_tone - mu) / sd
+                tone_probs = self.tone_model(x_tone)
+                tones = torch.argmax(tone_probs, dim=1)
+            with span("decoder.syllable"):
+                if self.syllable_scaler is not None:
+                    mu, sd = self.syllable_scaler
+                    x_syll = (x_syll - mu) / sd
+                syll_probs = self.syllable_model(x_syll)
+                sylls = torch.argmax(syll_probs, dim=1)
             mel = None
             if self.synthesis_model is not None:
-                contour = self.dynamics_table[tones]  # (B, n_dynamics)
-                syll_seq = sylls[:, None].to(torch.float32).expand(contour.shape)
-                dynamics = torch.stack([syll_seq, contour], dim=1)
-                mel = self.synthesis_model(ecog_non, dynamics)
+                with span("decoder.synthesis"):
+                    contour = self.dynamics_table[tones]  # (B, n_dynamics)
+                    syll_seq = sylls[:, None].to(torch.float32).expand(contour.shape)
+                    dynamics = torch.stack([syll_seq, contour], dim=1)
+                    mel = self.synthesis_model(ecog_non, dynamics)
         return tones, sylls, tone_probs, syll_probs, mel
 
     def decode(self, ecog_samples, channel_selections: Dict[str, Any]):
@@ -141,30 +144,33 @@ class TonalDecoder:
                 "decode() received zero trials — the ecog array in the "
                 "sample npz is empty."
             )
-        if not isinstance(ecog_samples, torch.Tensor):  # a copy: numpy may be read-only
-            ecog_samples = torch.tensor(np.asarray(ecog_samples, dtype=np.float32))
-        x = ecog_samples.to(device=self.device, dtype=torch.float32)
-        pad = self._layout.round_batch(n) - n
-        if pad:
-            x = torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
-        x = self._layout.shard(x)
-        idx = lambda ch: torch.as_tensor(sorted(ch), dtype=torch.long,  # noqa: E731
-                                         device=self.device)
-        non = select_non_discriminative_channels(channel_selections, _DISCRIMINATIVE)
-        tones, sylls, tone_probs, syll_probs, mel = self._decode(
-            x[:, idx(channel_selections["tone_discriminative"])],
-            x[:, idx(channel_selections["syllable_discriminative"])],
-            x[:, idx(non)],
-        )
-        fetch = lambda t: fetch_global(self.mesh, t)[:n]  # noqa: E731
-        out = {
-            "tone": fetch(tones),
-            "syllable": fetch(sylls),
-            "tone_probs": fetch(tone_probs),
-            "syllable_probs": fetch(syll_probs),
-        }
-        if mel is not None:
-            out["mel"] = fetch(mel)
+        with span("decoder.decode"):
+            if not isinstance(ecog_samples, torch.Tensor):  # a copy: numpy may be read-only
+                ecog_samples = torch.tensor(np.asarray(ecog_samples, dtype=np.float32))
+            x = ecog_samples.to(device=self.device, dtype=torch.float32)
+            pad = self._layout.round_batch(n) - n
+            if pad:
+                x = torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
+            x = self._layout.shard(x)
+            idx = lambda ch: torch.as_tensor(sorted(ch), dtype=torch.long,  # noqa: E731
+                                             device=self.device)
+            non = select_non_discriminative_channels(channel_selections, _DISCRIMINATIVE)
+            tones, sylls, tone_probs, syll_probs, mel = self._decode(
+                x[:, idx(channel_selections["tone_discriminative"])],
+                x[:, idx(channel_selections["syllable_discriminative"])],
+                x[:, idx(non)],
+            )
+            # the outputs to the host, where the host waits for the device
+            with span("decoder.fetch"):
+                fetch = lambda t: fetch_global(self.mesh, t)[:n]  # noqa: E731
+                out = {
+                    "tone": fetch(tones),
+                    "syllable": fetch(sylls),
+                    "tone_probs": fetch(tone_probs),
+                    "syllable_probs": fetch(syll_probs),
+                }
+                if mel is not None:
+                    out["mel"] = fetch(mel)
         return out
 
     def decode_stream(
@@ -196,15 +202,15 @@ class TonalDecoder:
             )
         starts = np.arange(0, n_samples - window + 1, hop, dtype=np.int64)
         max_batch = max(int(max_batch), 1)
-        rec = torch.tensor(recording, device=self.device)
-        chunks = [
-            self.decode(
-                extract_epochs(rec, torch.as_tensor(starts[lo : lo + max_batch]), window),
-                channel_selections,
-            )
-            for lo in range(0, len(starts), max_batch)
-        ]
-        out = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+        with span("decoder.decode_stream"):
+            rec = torch.tensor(recording, device=self.device)
+            chunks = []
+            for lo in range(0, len(starts), max_batch):
+                with span("decoder.gather"):
+                    epochs = extract_epochs(rec, torch.as_tensor(starts[lo : lo + max_batch]),
+                                            window)
+                chunks.append(self.decode(epochs, channel_selections))
+            out = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
         out["window_start"] = starts
         return out
 
@@ -794,17 +800,15 @@ def _parse_model_kwargs(value) -> Optional[Dict[str, Any]]:
 
 
 def _measure_latency(decoder, ecog, channel_selections, n_runs: int = 20):
-    """Single-trial end-to-end decode latency (epochs -> labels [+ mel]),
-    median over n_runs. ``decode`` copies its results to the host, which
-    waits for the device."""
+    """Single-trial end-to-end decode latency (epochs -> labels [+ mel]):
+    the median of n_runs recorded ``decoder.decode`` spans. ``decode``
+    copies its results to the host, which waits for the device."""
     one = ecog[:1]
     decoder.decode(one, channel_selections)  # warm-up
-    times = []
-    for _ in range(n_runs):
-        t0 = time.perf_counter()
-        decoder.decode(one, channel_selections)
-        times.append(time.perf_counter() - t0)
-    return float(np.median(times))
+    with recording() as rec:
+        for _ in range(n_runs):
+            decoder.decode(one, channel_selections)
+    return float(np.median(rec.durations("decoder.decode")))
 
 
 def main(argv=None) -> None:

@@ -41,6 +41,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..runtime.profiling import span
+
 
 def decay_mask(params: Sequence[torch.Tensor], seed_axis: bool = False) -> List[bool]:
     """True for parameters that receive weight decay (ndim >= 2, not
@@ -95,25 +97,26 @@ class NAdam:
 
     @torch.no_grad()
     def step(self, grads: Optional[Sequence[torch.Tensor]] = None) -> None:
-        if grads is None:
-            grads = [p.grad for p in self.params]
-        b1, b2 = self.b1, self.b2
-        self.count += 1
-        bc1 = _bias_correction(b1, self.count)
-        bc1_next = _bias_correction(b1, self.count + 1)
-        bc2 = _bias_correction(b2, self.count)
-        for p, g, mu, nu, decays in zip(self.params, grads, self.mu, self.nu, self.decay):
-            dtype = torch.promote_types(p.dtype, torch.float32)  # float32 at least
-            g = g.to(dtype)
-            if self.weight_decay and decays:
-                g = g + self.weight_decay * p
-            m = (1 - b1) * g + b1 * mu.to(dtype)
-            v = (1 - b2) * (g * g) + b2 * nu.to(dtype)
-            mu_hat = b1 * (m / bc1_next) + (1 - b1) * (g / bc1)
-            update = mu_hat / (torch.sqrt(v / bc2) + self.eps)
-            p.copy_(p + update * -self.learning_rate)
-            mu.copy_(m)
-            nu.copy_(v)
+        with span("optim.nadam"):
+            if grads is None:
+                grads = [p.grad for p in self.params]
+            b1, b2 = self.b1, self.b2
+            self.count += 1
+            bc1 = _bias_correction(b1, self.count)
+            bc1_next = _bias_correction(b1, self.count + 1)
+            bc2 = _bias_correction(b2, self.count)
+            for p, g, mu, nu, decays in zip(self.params, grads, self.mu, self.nu, self.decay):
+                dtype = torch.promote_types(p.dtype, torch.float32)  # float32 at least
+                g = g.to(dtype)
+                if self.weight_decay and decays:
+                    g = g + self.weight_decay * p
+                m = (1 - b1) * g + b1 * mu.to(dtype)
+                v = (1 - b2) * (g * g) + b2 * nu.to(dtype)
+                mu_hat = b1 * (m / bc1_next) + (1 - b1) * (g / bc1)
+                update = mu_hat / (torch.sqrt(v / bc2) + self.eps)
+                p.copy_(p + update * -self.learning_rate)
+                mu.copy_(m)
+                nu.copy_(v)
 
     def state_dict(self) -> Dict:
         return {"count": self.count, "mu": list(self.mu), "nu": list(self.nu)}

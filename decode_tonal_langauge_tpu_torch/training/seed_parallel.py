@@ -55,6 +55,7 @@ from torch.func import vmap
 from ..models.base import init_params
 from ..parallel.mesh import DataParallelLayout, all_gather
 from ..runtime.device import DeviceLike, exact_f32, resolve_device
+from ..runtime.profiling import span
 from ..utils import metrics as M
 from .optim import SeedNAdam
 from .seed_stack import SeedStack
@@ -229,7 +230,7 @@ class SeedParallelTrainer:
         """One NAdam step of every seed on its batch (x (S, B, ...), y and
         w (S, B), w_total (S,)); returns each seed's (loss, macro
         accuracy) as (S,) device tensors."""
-        with exact_f32():
+        with span("trainer.step"), exact_f32():
             grads, loss, out = self.stack.grad_step((x,), _batch_loss, (y, w, w_total),
                                                     self._dropout_gens)
             with torch.no_grad():

@@ -35,6 +35,7 @@ from torch import nn
 from torch.func import functional_call, grad_and_value, stack_module_state, vmap
 
 from ..ops.dropout import Dropout, given_masks
+from ..runtime.profiling import span
 
 
 def _enter(layers: List[str], name: str, *_) -> None:
@@ -128,17 +129,20 @@ class SeedStack:
         and ``loss_args`` carry the seed axis; ``loss_fn(out, *args)`` is
         one seed's scalar loss. Returns (gradients by parameter name, (S,)
         losses, (S, ...) outputs), the outputs without a gradient."""
-        masks = self.draw_masks(inputs, generators)
+        with span("seed_stack.masks"):
+            masks = self.draw_masks(inputs, generators)
         base = self.base.train()
 
         def seed_loss(params, buffers, masks, inputs, loss_args):
-            with given_masks(self._dropouts, masks):
+            with given_masks(self._dropouts, masks), span("seed_stack.forward"):
                 out = functional_call(base, (params, buffers), tuple(inputs))
             return loss_fn(out, *loss_args), out
 
-        grads, (loss, out) = self._call(vmap(grad_and_value(seed_loss, has_aux=True)),
-                                        self.params, self.buffers, masks, tuple(inputs),
-                                        tuple(loss_args))
+        # the span's self time: the backward outside the LSTM, and vmap's dispatch
+        with span("seed_stack.grad_step"):
+            grads, (loss, out) = self._call(vmap(grad_and_value(seed_loss, has_aux=True)),
+                                            self.params, self.buffers, masks, tuple(inputs),
+                                            tuple(loss_args))
         return grads, loss, out
 
     @torch.no_grad()

@@ -60,6 +60,7 @@ from ..models.base import init_params
 from ..ops.dropout import set_dropout_generator
 from ..parallel.mesh import DataParallelLayout
 from ..runtime.device import DeviceLike, exact_f32, resolve_device
+from ..runtime.profiling import span
 from .optim import NAdam, SeedNAdam
 from .seed_stack import SeedStack
 from .trainer import accept_jax_only
@@ -288,7 +289,7 @@ class SynthesisTrainer:
         the mel axis. cuDNN runs its deterministic algorithms, so that a
         resumed fit equals the uninterrupted one on the card too."""
         self.model.train()
-        with exact_f32(deterministic=True):
+        with span("trainer.step"), exact_f32(deterministic=True):
             out = self.model(x_non, labels)
             total = w.sum() if w_total is None else w_total
             loss = _l1_loss(out, targets, w, total)
@@ -515,7 +516,7 @@ class SeedSynthesisStack:
         """One NAdam step of every seed on its batch (each argument with a
         leading seed axis), under deterministic cuDNN; returns the (S,)
         losses and MCDs, as :meth:`SynthesisTrainer.train_step` per seed."""
-        with exact_f32(deterministic=True):
+        with span("trainer.step"), exact_f32(deterministic=True):
             grads, loss, out = self.stack.grad_step((x_non, labels), _l1_loss,
                                                     (targets, w, w_total), self.dropout_gens)
             with torch.no_grad():

@@ -60,6 +60,7 @@ from ..models.base import init_params
 from ..ops.dropout import set_dropout_generator
 from ..parallel.mesh import DataParallelLayout
 from ..runtime.device import DeviceLike, exact_f32, resolve_device
+from ..runtime.profiling import span
 from ..utils import metrics as M
 from .optim import NAdam
 
@@ -312,7 +313,7 @@ class ClassifierTrainer:
         device; returns the global batch's (loss, macro accuracy)
         tensors."""
         self.model.train()
-        with exact_f32():
+        with span("trainer.step"), exact_f32():
             out = self.model(x)
             loss = _batch_loss(out, y, w, w_total)
             grads = torch.autograd.grad(loss, self._weights)

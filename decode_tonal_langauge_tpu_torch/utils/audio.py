@@ -18,6 +18,7 @@ import torch
 from ..ops.griffinlim import griffinlim, mel_to_stft_mag
 from ..ops.stft import db_to_power, mel_filterbank, power_to_db, stft_magsq
 from ..runtime.device import DeviceLike, resolve_device
+from ..runtime.profiling import span
 
 
 def melspectrogram(
@@ -88,19 +89,24 @@ def mels_to_audio(
             f"mels_to_audio expects (batch, n_mels * n_frames); got "
             f"shape {mels.shape}"
         )
-    mel = torch.tensor(mels.reshape(mels.shape[0], n_mels, -1), device=dev)
-    if mel_in_db:
-        mel = db_to_power(mel, ref=0.0001)
-    basis = torch.as_tensor(
-        mel_filterbank(audio_sampling_rate, n_fft, n_mels, fmin, fmax),
-        dtype=torch.float32, device=dev,
-    )
-    S_mag = mel_to_stft_mag(mel, basis, power=power)
-    waves = griffinlim(
-        S_mag, n_fft=n_fft, hop_length=hop_length, n_iter=n_iter,
-        length=length, init_phase=init_phase, seed=seed,
-    )
-    return waves.cpu().numpy()
+    with span("audio.mels_to_audio"):
+        with span("audio.basis"):
+            mel = torch.tensor(mels.reshape(mels.shape[0], n_mels, -1), device=dev)
+            if mel_in_db:
+                mel = db_to_power(mel, ref=0.0001)
+            basis = torch.as_tensor(
+                mel_filterbank(audio_sampling_rate, n_fft, n_mels, fmin, fmax),
+                dtype=torch.float32, device=dev,
+            )
+        with span("audio.nnls"):
+            S_mag = mel_to_stft_mag(mel, basis, power=power)
+        with span("audio.griffinlim"):
+            waves = griffinlim(
+                S_mag, n_fft=n_fft, hop_length=hop_length, n_iter=n_iter,
+                length=length, init_phase=init_phase, seed=seed,
+            )
+        with span("audio.fetch"):
+            return waves.cpu().numpy()
 
 
 def mel_to_audio(mel: np.ndarray, n_mels: int, **kwargs) -> np.ndarray:

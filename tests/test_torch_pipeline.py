@@ -38,7 +38,7 @@ from decode_tonal_langauge_tpu_torch import pipeline, registry
 from decode_tonal_langauge_tpu_torch.config import load_config
 from decode_tonal_langauge_tpu_torch.data.synthetic import SyntheticSpec, write_subject
 from decode_tonal_langauge_tpu_torch.models.factory import resolve_model_class
-from decode_tonal_langauge_tpu_torch.runtime.profiling import StageTimer, timed, trace
+from decode_tonal_langauge_tpu_torch.runtime.profiling import StageTimer, trace
 from decode_tonal_langauge_tpu_torch.training import train_classifier
 from decode_tonal_langauge_tpu_torch.utils import visualise
 from decode_tonal_langauge_tpu_torch.visualisation import main as visualisation
@@ -104,6 +104,8 @@ def test_full_pipeline_equals_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "----------- Stage timing -----------" in proc.stdout
+    layers = proc.stdout.split("----------- Layer spans, most self time -----------")[1]
+    assert "trainer.step: self " in layers and "optim.nadam: self " in layers
     for stage in ("preprocess", "sample_collection", "channel_selection", "training",
                   "evaluation", "visualisation"):
         assert os.path.exists(jout[stage]), stage
@@ -258,8 +260,6 @@ def test_stage_timer_and_timed():
     assert set(timer.spans) == {"a", "b"}
     lines = timer.summary().splitlines()
     assert len(lines) == 2 and all(line.split(":")[0] in "ab" for line in lines)
-    result, seconds = timed(lambda v: v * 2, torch.ones(3), warmup=1, repeats=2)
-    assert torch.equal(result, torch.full((3,), 2.0)) and seconds >= 0
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
