@@ -20,6 +20,18 @@ present, or when the port's sources are not beside it.
    recurrence within 1e-3 at the latter; runs a 20-tap FIR (order 19, the
    generic instance) against SciPy and the plain version; times the
    kernel, each of its passes and the plain version.
+   K2 phase: one step of ``csrc/lstm_step.cu`` (``torch.ops.tonal.lstm_step``,
+   and ``lstm_step_backward`` where the cell takes a gradient) at every LSTM
+   shape of the benchmark's cells, float32, against its plain version on the
+   card (5e-5); its device µs (``torch.profiler``) beside its bound (weight
+   bytes at 3.35 TB/s or FLOPs at 67 TFLOP/s), the plain version's device µs,
+   cuBLAS's product alone as a yardstick, and an op call's host µs.
+   Every later phase zeroes K2's launch counters first and prints them
+   after (``k2_record``): each must equal the time steps the LSTM scans
+   ran on the card, counted at ``ops/lstm._scan`` and ``_scan_backward``;
+   a phase that trains an LSTM must have launched forward and reverse
+   steps, serving forward steps alone, the preprocess phase none. The
+   counts go on the kernels line as K2's ``phase_launches``.
 3. Preprocess phase: the stage's entry point ``preprocess.main.run`` on
    the card over one subject of two blocks, each 128 channels x 60 s of
    seeded noise plus a passthrough audio track, at 3052 Hz (the polyphase
@@ -335,6 +347,194 @@ def k1_phase(card: str) -> dict:
     }
 
 
+# The LSTM shapes the benchmark's cells run: (cell, LSTM, seeds, rows a
+# seed, H, whether the cell takes a gradient).
+K2_SHAPES = (
+    ("cnnrnn_fit.s4_b32", "lstm1", 4, 32, 800, True),
+    ("cnnrnn_fit.s4_b32", "lstm2", 4, 32, 512, True),
+    ("synthfull_fit.s4_b8", "label", 4, 8, 2640, True),
+    ("synthfull_stream.realtime", "tone lstm1", 1, 1, 800, False),
+    ("synthfull_stream.realtime", "tone lstm2", 1, 1, 512, False),
+    ("synthfull_stream.realtime", "label", 1, 1, 2640, False),
+    ("synthfull_decode.offline", "tone lstm1", 1, 596, 800, False),
+    ("synthfull_decode.offline", "tone lstm2", 1, 596, 512, False),
+    ("synthfull_decode.offline", "label", 1, 596, 2640, False),
+)
+
+
+def k2_step_times(kernel, plain, library, name) -> dict:
+    """Device µs per call of one step's kernel, its plain version (every
+    kernel it launches) and cuBLAS's product alone, from torch.profiler,
+    and the host µs of one step op call made back to back."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch._timing import device_events
+
+    runs = 20
+    both = device_events(lambda: (kernel(), library()), runs)
+    k_us = sum(ms for ms, _, n in both if name in n) * 1e3
+    lib_us = sum(ms for ms, _, n in both if name not in n) * 1e3
+    plain_us = sum(ms for ms, _, _ in device_events(plain, runs)) * 1e3
+    check(k_us > 0 and lib_us > 0 and plain_us > 0,
+          f"torch.profiler saw no device time for {name}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        kernel()
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    return {"us": k_us, "plain_us": plain_us, "library_us": lib_us, "call_us": host_us}
+
+
+def k2_phase(card: str) -> dict:
+    """K2 (``csrc/lstm_step.cu``) at every LSTM shape of the benchmark's
+    cells, float32: one forward step (and one reverse step where the cell
+    takes a gradient) against its plain version on the card (5e-5, the
+    summation order of the product), its device µs beside its bound
+    (weight bytes once at 3.35 TB/s, or FLOPs at 67 TFLOP/s), the plain
+    version's device µs, cuBLAS's product alone (a yardstick; the port
+    never calls it for the recurrence) and the host µs of an op call."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.ops import lstm
+
+    rows_out, worst = [], 0.0
+    fwd0, rev0 = lstm.FORWARD_LAUNCHES, lstm.REVERSE_LAUNCHES
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for cell, which, s, b, hid, grad in K2_SHAPES:
+        def draw(*shape, scale=1.0):
+            return torch.randn(shape, device="cuda", generator=gen) * scale
+
+        h, c = draw(s, b, hid, scale=0.3), draw(s, b, hid, scale=0.3)
+        wh = draw(s, hid, 4 * hid, scale=hid ** -0.5)
+        xg_t = draw(s, b, 4 * hid, scale=0.5)
+        outs = [torch.empty_like(h) for _ in range(4)]
+        gates = [torch.empty((4, s, b, hid), device="cuda") for _ in range(2)]
+        kernel = lambda: torch.ops.tonal.lstm_step(  # noqa: E731
+            h, wh, xg_t, c, outs[0], outs[1], gates[0], grad)
+        plain = lambda: lstm._step_plain(  # noqa: E731
+            h, wh, xg_t, c, outs[2], outs[3], gates[1], grad)
+        kernel()
+        plain()
+        gap = max((outs[0] - outs[2]).abs().max().item(), (outs[1] - outs[3]).abs().max().item())
+        if grad:
+            gap = max(gap, (gates[0] - gates[1]).abs().max().item())
+        worst = max(worst, gap)
+        check(gap <= 5e-5, f"K2 forward {cell} {which}: kernel vs plain {gap}")
+        flops = 2.0 * s * b * hid * 4 * hid
+        nbytes = 4.0 * (s * hid * 4 * hid + s * b * (hid + 4 * hid))
+        bound_us = max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS) * 1e6
+        bound_by = "bytes" if nbytes / PEAK_BYTES_S >= flops / PEAK_F32_FLOPS else "FLOPs"
+        row = {"cell": cell, "lstm": which, "seeds": s, "rows": b, "H": hid,
+               "tile": lstm.step_tile(s, b, hid), "bound_us": bound_us, "bound_by": bound_by,
+               "forward": k2_step_times(kernel, plain, lambda: torch.matmul(h, wh),
+                                        "::lstm_")}
+        if grad:
+            da = draw(s, b, 4 * hid, scale=0.1)
+            d_h = draw(s, b, hid)
+            wh_t = wh.transpose(1, 2)
+            dc_next = draw(s, b, hid, scale=0.1)
+            dcs = [dc_next, dc_next.clone()]
+            das = [torch.empty_like(da) for _ in range(2)]
+            gates[0].copy_(gates[1])
+            rkernel = lambda: torch.ops.tonal.lstm_step_backward(  # noqa: E731
+                da, wh_t, d_h, outs[1], c, gates[0], dcs[0], das[0], True)
+            rplain = lambda: lstm._step_backward_plain(  # noqa: E731
+                da, wh_t, d_h, outs[1], c, gates[0], dcs[1], das[1], True)
+            rkernel()
+            rplain()
+            gap = max((das[0] - das[1]).abs().max().item(),
+                      (dcs[0] - dcs[1]).abs().max().item())
+            worst = max(worst, gap)
+            check(gap <= 5e-5, f"K2 reverse {cell} {which}: kernel vs plain {gap}")
+            row["reverse"] = k2_step_times(rkernel, rplain, lambda: torch.matmul(da, wh_t),
+                                           "::lstm_")
+        rows_out.append(row)
+        parts = [f"{d} {row[d]['us']:.1f} us (plain {row[d]['plain_us']:.1f}, cuBLAS product "
+                 f"{row[d]['library_us']:.1f}, op call {row[d]['call_us']:.1f} host)"
+                 for d in ("forward", "reverse") if d in row]
+        print(f"K2 lstm_step {cell} {which} S{s} x B{b} x H{hid} tile {row['tile']}: "
+              f"{'; '.join(parts)}; bound {bound_us:.1f} us ({bound_by}) [{card}]")
+    launches = (lstm.FORWARD_LAUNCHES - fwd0, lstm.REVERSE_LAUNCHES - rev0)
+    check(launches[0] > 0 and launches[1] > 0, "K2 was not launched")
+    return {
+        "name": "lstm_step",
+        "route": "cuda",
+        "source": "decode_tonal_langauge_tpu_torch/csrc/lstm_step.cu",
+        "replaces": None,  # no Pallas kernel: the JAX package's lax.scan recurrence
+        "counterpart": "decode_tonal_langauge_tpu/ops/lstm.py (lax.scan)",
+        "launches": {"forward": launches[0], "reverse": launches[1]},
+        "max_abs_err": worst,
+        "shapes": rows_out,
+    }
+
+
+# K2's launches in each phase after its own (the kernels line's
+# ``phase_launches``), and the time steps the LSTM scans ran on the card,
+# counted at the scans apart from the kernels' launch counters.
+K2_PHASES: dict = {}
+K2_STEPS = {"forward": 0, "reverse": 0, "first_delta": 0}
+
+
+def k2_reset() -> None:
+    """Zero K2's launch counters and ``K2_STEPS``; the first call wraps
+    ``ops/lstm._scan`` and ``_scan_backward`` to count into ``K2_STEPS``
+    the time steps (and reverse loops) they run through the ops on a card."""
+    from decode_tonal_langauge_tpu_torch.ops import lstm
+
+    if not getattr(lstm._scan, "counted", False):
+        scan, scan_backward = lstm._scan, lstm._scan_backward
+
+        def counted_scan(xg, h0, c0, wh, keep, step):
+            if xg.is_cuda and step is not lstm._step_plain:
+                K2_STEPS["forward"] += xg.shape[2]
+            return scan(xg, h0, c0, wh, keep, step)
+
+        def counted_scan_backward(d_hs, wh, c0, cs, ifgo, step, init):
+            if cs.is_cuda and step is not lstm._step_backward_plain:
+                K2_STEPS["reverse"] += cs.shape[0]
+                K2_STEPS["first_delta"] += 1
+            return scan_backward(d_hs, wh, c0, cs, ifgo, step, init)
+
+        counted_scan.counted = True
+        lstm._scan, lstm._scan_backward = counted_scan, counted_scan_backward
+    lstm.FORWARD_LAUNCHES = lstm.REVERSE_LAUNCHES = lstm.DELTA_LAUNCHES = 0
+    K2_STEPS.update(forward=0, reverse=0, first_delta=0)
+
+
+def k2_launches() -> dict:
+    from decode_tonal_langauge_tpu_torch.ops import lstm
+
+    return {"forward": lstm.FORWARD_LAUNCHES, "reverse": lstm.REVERSE_LAUNCHES,
+            "first_delta": lstm.DELTA_LAUNCHES}
+
+
+def k2_record(phase: str, device: str, runs, ranks=()) -> dict:
+    """K2's launches since ``k2_reset()``, printed and kept in ``K2_PHASES``.
+    Each count must equal the time steps the scans ran on the card; on the
+    card a phase whose ``runs`` is "serve" or "train" must have launched
+    forward steps, one that trains ("train") reverse steps and first
+    deltas, and a phase with no LSTM (``runs`` None) none. ``ranks``: the
+    counts of the phase's other processes (each checked the same way)."""
+    got = k2_launches()
+    print(f"K2 launches during the {phase}: {got['forward']} forward steps, "
+          f"{got['reverse']} reverse steps, {got['first_delta']} first deltas (time steps "
+          f"the scans ran on the card: {K2_STEPS})"
+          + "".join(f"; rank {r}: {c['launches']}" for r, c in enumerate(ranks)))
+    for who, counts, steps in [("", got, K2_STEPS)] + [
+            (f" rank {r}", c["launches"], c["steps"]) for r, c in enumerate(ranks)]:
+        check(counts == steps, f"K2's launches during the {phase}{who} {counts} differ from "
+              f"the time steps the scans ran {steps}")
+        if device == "cuda":
+            check((counts["forward"] > 0) == (runs is not None)
+                  and (counts["reverse"] > 0) == (counts["first_delta"] > 0) == (runs == "train"),
+                  f"K2 during the {phase}{who}: {counts}, where the phase "
+                  + {None: "runs no LSTM", "serve": "serves LSTMs and trains none",
+                     "train": "trains LSTMs"}[runs])
+    K2_PHASES[phase] = {**got, "ranks": [c["launches"] for c in ranks]} if ranks else got
+    return got
+
+
 PRE_CHANNELS, PRE_SECONDS, PRE_TARGET, AUDIO_SF = 128, 60, 400, 24414.0
 # 3052 Hz takes the polyphase conv route (up 100, down 763); the TDT rate
 # 3051.7578125 Hz the gather route (up 1109, down 8461).
@@ -494,6 +694,7 @@ def preprocess_phase(card: str) -> None:
     from decode_tonal_langauge_tpu_torch.preprocess import main as preprocess_main
     from decode_tonal_langauge_tpu_torch.preprocess import preprocessor
 
+    k2_reset()
     rng = np.random.default_rng(0)
     for raw_sf in PRE_RATES:
         with tempfile.TemporaryDirectory() as root:
@@ -537,6 +738,7 @@ def preprocess_phase(card: str) -> None:
                   f"{got.shape}, card vs cpu max abs diff {err:.3g}, corr with "
                   f"SciPy {corr:.5f}, K1 launches {k1} [{card}]")
             preprocess_times(x, raw_sf, card)
+    k2_record("preprocess phase", "cuda", None)
 
 
 TRAIN_TRIALS, TRAIN_CHANNELS, TRAIN_LENGTH, N_TONES, N_SYLLS = 320, 6, 200, 4, 8
@@ -999,6 +1201,7 @@ def training_phase(card: str, device: str = "cuda") -> None:
         subject = write_subject(root, np.random.default_rng(0))
         seeds = [int(s) for s in seed_stream(42, 2)]
         cuda_iir.LAUNCHES = 0
+        k2_reset()
         on_card = device == "cuda"
         if on_card:
             torch.cuda.reset_peak_memory_stats()
@@ -1025,6 +1228,7 @@ def training_phase(card: str, device: str = "cuda") -> None:
         train_step_times(card, trainers)
     print(f"K1 launches during the training phase: {cuda_iir.LAUNCHES}")
     check(cuda_iir.LAUNCHES == 0, "K1 launched during the training phase")
+    k2_record("training phase", device, "train")
 
 
 # The synthesizer phase at the paper's SynthesisFull widths (bench.py:371-463 and
@@ -1359,6 +1563,7 @@ def synthesis_phase(card: str, device: str = "cuda", sizes: dict = SYN_FULL) -> 
     from decode_tonal_langauge_tpu_torch.ops import cuda_iir
 
     cuda_iir.LAUNCHES = 0
+    k2_reset()
     data_path_phase(device)
     with tempfile.TemporaryDirectory() as root:
         world = write_synthesis_world(root, sizes)
@@ -1367,6 +1572,7 @@ def synthesis_phase(card: str, device: str = "cuda", sizes: dict = SYN_FULL) -> 
     synthesis_steps(card, device, world, sizes)
     print(f"K1 launches during the synthesizer phase: {cuda_iir.LAUNCHES}")
     check(cuda_iir.LAUNCHES == 0, "K1 launched during the synthesizer phase")
+    k2_record("synthesizer phase", device, "train")
 
 
 def write_artifacts(root: str, rng) -> dict:
@@ -1730,6 +1936,7 @@ def pipeline_phase(card: str, device: str = "cuda", sizes: dict = PIPE_FULL) -> 
     on_card = device == "cuda"
     spec = SyntheticSpec(n_channels=sizes["channels"], ecog_sf=PIPE_SF, n_blocks=2,
                          trials_per_block=sizes["trials_per_block"])
+    k2_reset()
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         write_subject(f"{root}/raw", 1, spec)
@@ -1816,6 +2023,7 @@ def pipeline_phase(card: str, device: str = "cuda", sizes: dict = PIPE_FULL) -> 
         pipeline_serving(card, device, outputs, fits, seeds)
         if on_card:
             anova_times(card, sample, device)
+    k2_record("pipeline phase", device, "train")
 
 
 # The bf16 phase: the compute dtype of configs/fast_bf16.yaml (model_kwargs:
@@ -2118,6 +2326,7 @@ def bf16_phase(card: str, device: str = "cuda", pipe_sizes: dict = PIPE_FULL,
     from decode_tonal_langauge_tpu_torch.ops import cuda_iir
 
     cuda_iir.LAUNCHES = 0
+    k2_reset()
     if device == "cuda":
         bf16_step_times(card, device, syn_sizes)
     bf16_card_vs_cpu(card, device, syn_sizes)
@@ -2125,6 +2334,7 @@ def bf16_phase(card: str, device: str = "cuda", pipe_sizes: dict = PIPE_FULL,
     bf16_synthesizer(card, device, syn_sizes)
     print(f"K1 launches during the bf16 phase: {cuda_iir.LAUNCHES}")
     check(cuda_iir.LAUNCHES == 0, "K1 launched during the bf16 phase")
+    k2_record("bf16 phase", device, "train")
 
 
 # The seed-parallel phase: every repeat seed of an experiment in one batched
@@ -2602,6 +2812,7 @@ def seed_parallel_phase(card: str, device: str = "cuda", sizes: dict = SP_FULL) 
     from decode_tonal_langauge_tpu_torch.utils.seeding import seed_stream
 
     cuda_iir.LAUNCHES = 0
+    k2_reset()
     seeds = [int(s) for s in seed_stream(42, SP_SEEDS)]
     subject = sp_subject(sizes)
     failures = []  # the rows' faults, reported after every part has run
@@ -2614,6 +2825,7 @@ def seed_parallel_phase(card: str, device: str = "cuda", sizes: dict = SP_FULL) 
     sp_fast_bf16(card, device, sizes["pipe"])
     print(f"K1 launches during the seed-parallel phase: {cuda_iir.LAUNCHES}")
     check(cuda_iir.LAUNCHES == 0, "K1 launched during the seed-parallel phase")
+    k2_record("seed-parallel phase", device, "train")
     check(not failures, f"{len(failures)} rows off the rule: " + "; ".join(failures[:12]))
 
 
@@ -2891,6 +3103,7 @@ def parallel_worker(spec_path: str) -> None:
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     cuda_iir.LAUNCHES = 0
+    k2_reset()
     mesh = make_mesh(world)
     out = {"world": world, "backend": dist.get_backend(), "steps": {}}
     for name, (make, batch_fn) in (par_models(spec["sizes"]).items()
@@ -2914,6 +3127,7 @@ def parallel_worker(spec_path: str) -> None:
         out["serving"] = {"summary": serving.run(serving.build_parser().parse_args(
             spec["serving"])), "wall_s": time.perf_counter() - t0}
     out["k1"] = cuda_iir.LAUNCHES
+    out["k2"] = {"launches": k2_launches(), "steps": dict(K2_STEPS)}
     out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20 if on_card else float("nan")
     torch.save(out, os.path.join(os.path.dirname(spec_path), f"rank{rank}.pt"))
     distributed.barrier("worker:done")
@@ -3019,6 +3233,7 @@ def _parallel_phase(card: str, device: str, sizes: dict) -> None:
 
     on_card = device == "cuda"
     cuda_iir.LAUNCHES = 0
+    k2_reset()
     models = par_models(sizes)
     with tempfile.TemporaryDirectory() as root:
         # (a) one rank, NCCL on the card.
@@ -3102,6 +3317,7 @@ def _parallel_phase(card: str, device: str, sizes: dict) -> None:
               f"one-process decode, mels max abs diff {err:.3g}; "
               f"{outs[0]['serving']['wall_s']:.2f} s wall [{card}]")
         k1 = cuda_iir.LAUNCHES + sum(o["k1"] for o in outs)
+        k2_ranks = [o["k2"] for o in outs]
 
         # (e) one rank per card over NCCL.
         n_cards = torch.cuda.device_count() if on_card else 0
@@ -3112,6 +3328,7 @@ def _parallel_phase(card: str, device: str, sizes: dict) -> None:
                   "one rank per card")
     print(f"K1 launches during the parallel phase: {k1}")
     check(k1 == 0, "K1 launched during the parallel phase")
+    k2_record("parallel phase", device, "train", k2_ranks)
 
 
 def nccl_ranks(card: str, root: str, n: int, sizes: dict, ref: dict) -> int:
@@ -3283,12 +3500,14 @@ def demo_phase(card: str, device: str = "cuda") -> None:
         root = os.path.join(tmp, "demo_run")
         argv = [root] + ([] if device == "cuda" else ["--device", device])
         cuda_iir.LAUNCHES = 0
+        k2_reset()
         t0 = time.perf_counter()
         run = demo.main(argv)
         wall = time.perf_counter() - t0
         k1 = cuda_iir.LAUNCHES
         print(f"K1 launches during the demo phase: {k1}")
         check(k1 == 0, "K1 launched during the demo")
+        k2_record("demo phase", device, "train")
         stream = run["stream"]
         check(stream["n_windows"] > 0 and len(read_csv(os.path.join(
             root, "streamed", "windows.csv"))) == stream["n_windows"],
@@ -3329,6 +3548,7 @@ def parity_phase(card: str, device: str = "cuda") -> int:
     flag = [] if device == "cuda" else ["--device", device]
     with tempfile.TemporaryDirectory() as tmp:
         cuda_iir.LAUNCHES = 0
+        k2_reset()
         t0 = time.perf_counter()
         harness.main(["--workdir", tmp, "--only", "cnn", "--seeds",
                       str(PARITY_CNN_SEEDS)] + flag)
@@ -3339,6 +3559,7 @@ def parity_phase(card: str, device: str = "cuda") -> int:
     k1 = cuda_iir.LAUNCHES
     print(f"K1 launches during the parity phase: {k1}")
     check(k1 == 0, "K1 launched during the parity phase")
+    k2_record("parity phase", device, "train")
     accs = res["cnn"]["accuracy_all"]
     cmp = res["comparison"]["cnn"]
     check(len(accs) == PARITY_CNN_SEEDS and cmp["saturated"]
@@ -3393,19 +3614,22 @@ def main() -> None:
         print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
         return out
 
-    kernels = [timed(k1_phase, card)]
+    kernels = [timed(k1_phase, card), timed(k2_phase, card)]
     timed(preprocess_phase, card)
     timed(training_phase, card)
     timed(seed_parallel_phase, card)
     timed(synthesis_phase, card)
     cuda_iir.LAUNCHES = 0
+    k2_reset()
     timed(serving_phase, card)
     print(f"K1 launches during the serving phase: {cuda_iir.LAUNCHES}")
+    k2_record("serving phase", "cuda", "serve")
     timed(pipeline_phase, card)
     timed(bf16_phase, card)
     timed(parallel_phase, card)
     timed(demo_phase, card)
     kernels[0]["phase_launches"] = {"parity phase": timed(parity_phase, card)}
+    kernels[1]["phase_launches"] = K2_PHASES
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
