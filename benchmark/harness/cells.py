@@ -3,15 +3,27 @@
 ``BENCHMARK.json`` at the checkout's root names each cell's configuration
 and traffic mix; the rest sits in files of their own under this folder:
 
-- ``configs/<config>.json``: the configuration as it is run;
+- ``configs/<config>.json``: the configuration as it is run; each model
+  entry names its plain reference module (``"reference"``) and how the
+  port builds it (``"port"``, read by ``harness/program.py``);
 - ``traffic/<mix>.json``: a traffic mix's parameters, with the name of
   the driver that reads them (``traffic/<driver>.py``);
 - ``limits/<cell>.json``: the limit of each number compared;
-- ``flops/<module>.py``: the configuration's FLOP and byte counts;
-- ``layer_metrics/<metric>.py``: one reader per per-layer metric.
+- ``flops/<module>.py``: the configuration's FLOP and byte counts (its
+  own layer list, on ``harness/flopcount.py``'s rules);
+- ``layer_metrics/<metric>.py``: one reader per per-layer metric;
+- ``tests/cuts/configs/<config>.json``, ``tests/cuts/traffic/<mix>.json``:
+  the small cuts the CPU tests run them at (``tests/tiny.py``).
 
-A new cell, configuration, mix or metric is new files and new entries;
-no file here names them.
+A new cell, configuration, mix, driver or metric is new files and new
+entries; no file here names them. A new architecture brings its
+reference module (``reference/<module>.py``: ``param_spec``,
+``forward``, ``dropout_shapes``), the ``port`` entry of its model, and its
+configuration's small cut. A new driver gives ``setup``, ``window``,
+``traced``, ``release``, ``judge`` and ``control``, and declares the
+faults its cells can have (``FAULTS``; for a fit also ``TRAINERS``, the
+port's classes whose ``train_step`` the half-batch fault cuts, and
+``BATCH_AXIS``), which ``tests/test_bench_faults.py`` breaks underneath.
 """
 
 from __future__ import annotations

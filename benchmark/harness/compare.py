@@ -41,6 +41,12 @@ def worst_leaf_gap(prog: Dict[str, float], ref: Dict[str, float],
     return max(abs(prog[k] - ref[k]) / max(ref[k], median, 1e-300) for k in keys)
 
 
+def median_leaf_gap(prog: Dict[str, float], ref: Dict[str, float]) -> float:
+    """The median over the leaves of :func:`worst_leaf_gap`'s gap."""
+    median = statistics.median(ref.values())
+    return statistics.median(abs(prog[k] - ref[k]) / max(ref[k], median, 1e-300) for k in ref)
+
+
 def rel_gap(prog: Sequence[float], ref: Sequence[float]) -> float:
     """The largest relative gap between paired numbers."""
     p, r = np.asarray(prog, np.float64), np.asarray(ref, np.float64)

@@ -1,42 +1,55 @@
 """The port's objects, built from a configuration and the harness's
 seeded weights. The only harness module besides the traffic drivers that
-imports the port."""
+imports the port.
+
+A model entry says how the port builds it, under ``"port"``: ``factory``,
+the dotted path of a function or class of the port; ``args``, the entry's
+keys whose values it takes in order; ``kwargs``, keyword arguments whose
+value is an entry key, or an object of names to entry keys (passed as a
+dict); ``const``, keyword arguments given as they stand. So a new
+architecture of the port is a model entry, and no file here names it."""
 
 from __future__ import annotations
 
+import importlib
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..reference.decode import ARCHS
+from ..reference import module_of
 from . import inputs, weights
+
+PORT = "decode_tonal_langauge_tpu_torch"
 
 
 def spec(m: Dict):
     """A model's tensors (name, shape, init, fan-in), the port's names."""
-    return ARCHS[m["arch"]].param_spec(m)
+    return module_of(m).param_spec(m)
+
+
+def _factory(path: str):
+    module, _, name = path.rpartition(".")
+    if module.split(".")[0] != PORT:
+        raise ValueError(f"a model entry's port factory {path!r} is not in {PORT}")
+    return getattr(importlib.import_module(module), name)
 
 
 def build(m: Dict, device: Optional[torch.device] = None) -> torch.nn.Module:
     """The port's module for model entry ``m``; with ``device`` its
     tensors are allocated there, unfilled, and the module's own
     initialisation is skipped."""
-    from decode_tonal_langauge_tpu_torch.models.factory import (build_synthesis_model,
-                                                                get_classifier_by_name)
-
-    def make():
-        if m["arch"] == "SynthesisFull":
-            return build_synthesis_model("SynthesisFull", m["output_dim"], m["n_channels"],
-                                         m["n_timepoints"], dtype="float32")
-        extra = {k: m[k] for k in ("lstm_dim",) if k in m}
-        return get_classifier_by_name(m["arch"], m["n_classes"], m["input_channels"],
-                                      m["input_length"], extra)
+    port = m["port"]
+    factory = _factory(port["factory"])
+    args = [m[k] for k in port.get("args", ())]
+    kwargs = {name: ({k: m[v] for k, v in key.items()} if isinstance(key, dict) else m[key])
+              for name, key in port.get("kwargs", {}).items()}
+    kwargs.update(port.get("const", {}))
 
     if device is None:
-        return make()
+        return factory(*args, **kwargs)
     with torch.device("meta"):
-        module = make()
+        module = factory(*args, **kwargs)
     return module.to_empty(device=device)
 
 
@@ -49,15 +62,17 @@ def frozen(m: Dict, w: Dict[str, torch.Tensor], device) -> torch.nn.Module:
 
 def decode_weights(cfg: Dict, seed: int, device, keys=None) -> Dict[str, Dict[str, torch.Tensor]]:
     """The weights of a decode stack's models (``keys``, default all),
-    drawn from the run's seed. The synthesizer's output bias is a seeded
-    mean mel, as a fit starts it from its train mels' mean."""
+    drawn from the run's seed. A synthesizer's output bias (its reference
+    module's ``MEAN_MEL_BIAS``) is a seeded mean mel, as a fit starts it
+    from its train mels' mean."""
     out = {}
     for key in keys or cfg["models"]:
         m = cfg["models"][key]
         out[key] = weights.draw(spec(m), inputs.sub_seeds(seed, f"weights/{key}", 1)[0], device)
-        if m["arch"] == "SynthesisFull":
+        bias = getattr(module_of(m), "MEAN_MEL_BIAS", None)
+        if bias is not None:
             mean = inputs.mels(inputs.rng(seed, "mel_bias"), 96, m["output_dim"]).mean(0)
-            out[key]["output_layer.bias"] = torch.as_tensor(mean, device=device)
+            out[key][bias] = torch.as_tensor(mean, device=device)
     return out
 
 

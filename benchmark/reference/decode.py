@@ -9,11 +9,9 @@ from typing import Dict, Tuple
 
 import torch
 
-from . import cnn, cnnrnn, synthesis_cnn
+from . import module_of
 from .layers import cast
 from .precision import Precision
-
-ARCHS = {"CNN": cnn, "CNNRNN": cnnrnn, "SynthesisFull": synthesis_cnn}
 
 
 def dynamics(tones: torch.Tensor, sylls: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -27,7 +25,7 @@ def classify(params: Dict, models: Dict, key: str, x: torch.Tensor,
     if scaler is not None:
         x = (x - scaler[0].to(x)) / scaler[1].to(x)
     m = models[key]
-    return ARCHS[m["arch"]].forward(cast(params[key], prec), x, m, prec)
+    return module_of(m).forward(cast(params[key], prec), x, m, prec)
 
 
 def decode(params: Dict, models: Dict, windows: torch.Tensor, channels: Dict,
@@ -42,6 +40,6 @@ def decode(params: Dict, models: Dict, windows: torch.Tensor, channels: Dict,
                   scalers.get("syllable"), prec)
     labels = dynamics(pt.argmax(1), ps.argmax(1), table.to(dt))
     m = models["synthesis"]
-    mel = ARCHS[m["arch"]].forward(cast(params["synthesis"], prec), windows[:, idx["non"]],
-                                   labels, m, prec)
+    mel = module_of(m).forward(cast(params["synthesis"], prec), windows[:, idx["non"]], labels,
+                              m, prec)
     return pt, ps, mel

@@ -22,6 +22,7 @@ from .layers import (Spec, conv, conv_len, conv_spec, dropout, linear, linear_sp
 from .precision import Precision
 
 DROPOUTS = ("ecog_dropout",)
+MEAN_MEL_BIAS = "output_layer.bias"  # a fit starts it at its train mels' mean
 ECOG = ((512, 3, True), (512, 3, True), (256, 1, True), (None, 1, False))  # after the stencil
 
 

@@ -3,8 +3,13 @@
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 The cell is an entry of ``BENCHMARK.json``: a configuration
-(``configs/<config>.json``) under a traffic mix (``traffic/<mix>.json``,
-read by the driver it names, ``traffic/<driver>.py``). A run:
+(``configs/<config>.json``, whose model entries name their plain
+reference module and how the port builds them) under a traffic mix
+(``traffic/<mix>.json``, read by the driver it names,
+``traffic/<driver>.py``). Nothing here names a cell, an architecture or
+a driver: a new one is new files (``harness/cells.py`` lists them: for an
+architecture its reference module, the ``port`` entry of its model, its
+small cuts; for a driver its faults declaration) and new entries. A run:
 
 1. sets up the port as its users do, from seeded inputs and weights, and
    warms up every shape the mix uses (``setup_s`` is the time from the

@@ -1,10 +1,13 @@
 """BENCHMARK.json against the shape its readers expect, every file it names, and
 a cell, a configuration, a mix and a per-layer metric added as new files
-alone."""
+alone; so too an architecture with a traffic driver of its own."""
 
 import json
+import os
 import re
 import shutil
+import subprocess
+import sys
 
 import pytest
 
@@ -98,13 +101,73 @@ from benchmark import run
 res = run.run_cell("tiny_fit.s3_b4", 7, 0.5, True, device="cpu")
 print(json.dumps(res))
 """
-    import subprocess
-    import sys
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True,
                          text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["correct"] and res["metrics"]["steps_in_window.train"]["value"] >= 1
+
+
+NEW_ARCH = Path(__file__).resolve().parent / "new_arch"
+
+
+def test_a_new_architecture_and_driver_are_new_files_alone(tmp_path):
+    """A copy of the benchmark gains an architecture it lacks and the port
+    has (``ShallowNN``: a plain reference module of its own and the port
+    build in its model entry), its configuration, a traffic driver of its
+    own (``fit_shallow``, a copy of ``fit_single`` under another name),
+    a mix, limits, small cuts, a flops file with its own layer list and a
+    per-layer metric: the files under ``new_arch/`` (laid out as the
+    benchmark's folder) and entries in BENCHMARK.json. No existing file
+    of the copy changes. In the copy, in subprocesses, the new cell runs
+    correct with its metrics, and the tests of ``test_bench_runs.py``,
+    ``test_bench_faults.py`` and ``test_bench_control.py`` run for it and
+    pass."""
+    copy = tmp_path / "benchmark"
+    shutil.copytree(ROOT / "benchmark", copy, ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in copy.rglob("*") if p.is_file()}
+    new = [(copy / "traffic" / "fit_shallow.py", (copy / "traffic" / "fit_single.py").read_bytes())]
+    new += [(copy / p.relative_to(NEW_ARCH), p.read_bytes())
+            for p in NEW_ARCH.rglob("*") if p.is_file() and "__pycache__" not in p.parts]
+    for path, data in new:
+        assert not path.exists(), path
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(data)
+    cell = "shallow_fit.s1_b8"
+    bench = cells.benchmark()
+    bench["configs"].append({"name": "shallow_tone", "source": "https://example.org",
+                             "file": "benchmark/configs/shallow_tone.json", "reduced": [],
+                             "why": "a test's"})
+    bench["workloads"].append({"name": cell, "config": "shallow_tone",
+                               "traffic": "fit_shallow_b8", "chips": 1, "why": "a test's"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if m["name"] in ("train_trials_per_s", "step_mfu.train"):
+            m["workloads"].append(cell)
+    bench["per_layer"].append({"name": "steps_in_window.train", "unit": "steps",
+                               "better": "higher", "source": "host_clock", "layer": "trainer",
+                               "moves": "train_trials_per_s", "workloads": [cell]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    assert {p: p.read_bytes() for p in before} == before
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))  # the port from the checkout
+    code = ("import json, sys\nsys.path.insert(0, '.')\nfrom benchmark import run\n"
+            f"print(json.dumps(run.run_cell({cell!r}, 2**31 + 5, 0.5, True, device='cpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["correct"] and res["metrics"]["steps_in_window.train"]["value"] >= 1
+    assert res["metrics"]["step_mfu.train"]["value"] > 0
+
+    tests = [f"benchmark/tests/{f}" for f in ("test_bench_runs.py", "test_bench_faults.py",
+                                               "test_bench_control.py")]
+    out = subprocess.run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+                          "-p", "no:randomly", "-k", cell, *tests], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-2000:]
+    passed = re.search(r"(\d+) passed", out.stdout)
+    # two runs and a seed's repeat, the state and half-batch faults, both controls
+    assert passed and int(passed.group(1)) == 7, out.stdout[-2000:]
 
 
 def test_no_card_no_result(capsys):

@@ -1,6 +1,12 @@
 """The comparison that decides ``correct`` fails when the timed path is
 broken underneath: a run on the CPU at small sizes, past the look for a
-card, with the port patched."""
+card, with the port patched.
+
+Which faults a cell can have is its traffic driver's ``FAULTS``; the
+half-batch fault cuts the ``train_step`` of each class the driver names
+in ``TRAINERS`` along its ``BATCH_AXIS``."""
+
+import importlib
 
 import numpy as np
 import pytest
@@ -10,9 +16,14 @@ from benchmark.harness import cells
 from tiny import config, limits, mix
 
 BENCH = cells.benchmark()
-FITS = [w["name"] for w in BENCH["workloads"] if cells.mix(w["traffic"])["driver"] == "fit_steps"]
-DECODES = [w["name"] for w in BENCH["workloads"]
-           if cells.mix(w["traffic"])["driver"] != "fit_steps"]
+
+
+def driver(name):
+    return cells.module("traffic", cells.mix(cells.cell(name, BENCH)["traffic"])["driver"])
+
+
+def cells_with(fault):
+    return [w["name"] for w in BENCH["workloads"] if fault in driver(w["name"]).FAULTS]
 
 
 def tiny_run(name):
@@ -21,7 +32,14 @@ def tiny_run(name):
                         mix=mix(cell["traffic"]), limits=limits(name))
 
 
-@pytest.mark.parametrize("name", FITS)
+def test_every_fault_a_driver_declares_has_a_test():
+    known = {"state_unchanged", "half_batch", "answer_altered", "waveform_altered",
+             "half_windows"}
+    for w in BENCH["workloads"]:
+        assert set(driver(w["name"]).FAULTS) <= known, w["name"]
+
+
+@pytest.mark.parametrize("name", cells_with("state_unchanged"))
 def test_a_step_that_leaves_the_state_unchanged(name, monkeypatch):
     from decode_tonal_langauge_tpu_torch.training import optim
 
@@ -29,24 +47,25 @@ def test_a_step_that_leaves_the_state_unchanged(name, monkeypatch):
     assert tiny_run(name)["correct"] is False
 
 
-@pytest.mark.parametrize("name", FITS)
+@pytest.mark.parametrize("name", cells_with("half_batch"))
 def test_half_of_the_batch_left_out(name, monkeypatch):
-    from decode_tonal_langauge_tpu_torch.training.seed_parallel import SeedParallelTrainer
-    from decode_tonal_langauge_tpu_torch.training.synthesis_trainer import SeedSynthesisStack
-
-    for cls in (SeedParallelTrainer, SeedSynthesisStack):
+    d = driver(name)
+    axis = d.BATCH_AXIS
+    for path in d.TRAINERS:
+        module, _, cls_name = path.rpartition(".")
+        cls = getattr(importlib.import_module(module), cls_name)
         step = cls.train_step
 
         def half(self, *args, _step=step):
             *batch, _ = args
-            batch = [t[:, :t.shape[1] // 2] for t in batch]
-            return _step(self, *batch, batch[-1].sum(1))
+            batch = [t.narrow(axis, 0, t.shape[axis] // 2) for t in batch]
+            return _step(self, *batch, batch[-1].sum(axis))
 
         monkeypatch.setattr(cls, "train_step", half)
     assert tiny_run(name)["correct"] is False
 
 
-@pytest.mark.parametrize("name", DECODES)
+@pytest.mark.parametrize("name", cells_with("answer_altered"))
 def test_an_answer_altered_where_it_is_produced(name, monkeypatch):
     from decode_tonal_langauge_tpu_torch.serving import TonalDecoder
 
@@ -63,7 +82,7 @@ def test_an_answer_altered_where_it_is_produced(name, monkeypatch):
     assert res["correct"] is False and res["checks"]["mel_gap_db"]["value"] > 0.05
 
 
-@pytest.mark.parametrize("name", [n for n in DECODES if "stream" in n])
+@pytest.mark.parametrize("name", cells_with("waveform_altered"))
 def test_a_waveform_altered_where_it_is_produced(name, monkeypatch):
     from decode_tonal_langauge_tpu_torch.serving import TonalDecoder
 
@@ -78,7 +97,7 @@ def test_a_waveform_altered_where_it_is_produced(name, monkeypatch):
     assert tiny_run(name)["correct"] is False
 
 
-@pytest.mark.parametrize("name", [n for n in DECODES if "offline" in n])
+@pytest.mark.parametrize("name", cells_with("half_windows"))
 def test_half_of_the_windows_left_out(name, monkeypatch):
     from decode_tonal_langauge_tpu_torch.serving import TonalDecoder
 

@@ -12,6 +12,9 @@ compared with it.
 
 Mix parameters: ``recording_s``, ``window``, ``hop``, ``sample_rate_hz``,
 ``max_batch``, ``trace_passes``, ``margin``.
+
+``FAULTS``: what the benchmark's tests break underneath
+(``tests/test_bench_faults.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ from typing import Dict
 import numpy as np
 
 from benchmark.harness import decode_check, inputs, program, weights
+
+FAULTS = ("answer_altered", "half_windows")
+
 
 def _recording(ctx) -> np.ndarray:
     ch, mix = ctx.cfg["channels"], ctx.mix

@@ -15,6 +15,11 @@ run. The window then steps the same object on.
 
 Mix parameters: ``seeds``, ``batch`` (a seed), ``check_steps``,
 ``trace_steps``.
+
+What the benchmark's tests break underneath (``tests/test_bench_faults.py``):
+``FAULTS``, the faults a fit can have; ``TRAINERS``, the port's classes
+whose ``train_step(*batch, total)`` the half-batch fault cuts along
+``BATCH_AXIS`` of each batch tensor (the seeds lead).
 """
 
 from __future__ import annotations
@@ -27,11 +32,17 @@ import numpy as np
 import torch
 
 from benchmark.harness import inputs, program, weights
+from benchmark.reference import module_of
 from benchmark.reference import train as ref_train
-from benchmark.reference.decode import ARCHS, dynamics
+from benchmark.reference.decode import dynamics
 from benchmark.reference.decode import classify as ref_classify
 from benchmark.reference.layers import cast
 from benchmark.reference.precision import BY_NAME, no_tf32
+
+FAULTS = ("state_unchanged", "half_batch")
+TRAINERS = ("decode_tonal_langauge_tpu_torch.training.seed_parallel.SeedParallelTrainer",
+            "decode_tonal_langauge_tpu_torch.training.synthesis_trainer.SeedSynthesisStack")
+BATCH_AXIS = 1
 
 
 def _sync(device) -> None:
@@ -125,13 +136,15 @@ def _synthesis(ctx, data) -> SimpleNamespace:
 
 
 def fit_weights(ctx, data, device) -> Dict[str, torch.Tensor]:
-    """The trained model's initial weights, seed-stacked; a synthesizer's
-    output bias starts at its seed's train-mel mean."""
-    fit = ctx.cfg["fit"]
-    w = weights.stacked(program.spec(ctx.cfg["models"][fit["model"]]), data.weight_seeds, device)
-    if fit["kind"] == "synthesis":
+    """The trained model's initial weights, seed-stacked; the tensor its
+    reference module names ``MEAN_MEL_BIAS`` (a synthesizer's output bias)
+    starts at its seed's train-mel mean."""
+    m = ctx.cfg["models"][ctx.cfg["fit"]["model"]]
+    w = weights.stacked(program.spec(m), data.weight_seeds, device)
+    bias = getattr(module_of(m), "MEAN_MEL_BIAS", None)
+    if bias is not None:
         means = np.stack([data.arrays["mels"][r].mean(0) for r in data.train])
-        w["output_layer.bias"] = torch.as_tensor(means, device=device)
+        w[bias] = torch.as_tensor(means, device=device)
     return w
 
 
@@ -171,18 +184,22 @@ class Feed:
         return [t[:, b] for t in self.batches] + [self.totals[:, b]]
 
 
-def setup(ctx) -> SimpleNamespace:
-    data = make_data(ctx)
-    fit = ctx.cfg["fit"]
-    prog = (_classifier if fit["kind"] == "classifier" else _synthesis)(ctx, data)
-    w0 = fit_weights(ctx, data, ctx.device)
+def first_epoch(ctx, prog, feed, w0: Dict[str, torch.Tensor]) -> Dict:
+    """Loads ``w0`` into ``prog.params`` and runs the first epoch through
+    the window's own call (``prog.step``) and ``feed``, reading what the
+    reference follows: each of the first ``check_steps`` losses, the first
+    gradient as the optimizer's first moment holds it
+    (``prog.first_moment()``), every tensor's change after those steps,
+    the initial weights' sums and the rows the steps took. Every tensor,
+    ``feed.epoch()``'s permutation and each step's loss too, leads with a
+    seed axis."""
+    fit, k_check = ctx.cfg["fit"], ctx.mix["check_steps"]
     if set(w0) != set(prog.params):
         raise KeyError(f"weights {sorted(set(w0) ^ set(prog.params))} do not match the model")
-    for k, v in prog.params.items():
-        v.copy_(w0[k])
-    feed = Feed(ctx, prog.tensors)
+    with torch.no_grad():
+        for k, v in prog.params.items():
+            v.copy_(w0[k])
     perm = feed.epoch()
-    k_check = ctx.mix["check_steps"]
     losses, first, change = [], {}, {}
     for b in range(feed.n_batches):
         loss = prog.step(*feed.step_args())
@@ -193,9 +210,17 @@ def setup(ctx) -> SimpleNamespace:
                      for k, mu in prog.first_moment().items()}
         if b == k_check - 1:
             change = {k: (p - w0[k]).flatten(1).norm(dim=1) for k, p in prog.params.items()}
-    readings = {"loss": torch.stack(losses, 1), "grad_eff": first, "change": change,
-                "w0_sum": {k: v.double().flatten(1).sum(1) for k, v in w0.items()},
-                "rows": perm[:, :k_check * feed.batch]}
+    return {"loss": torch.stack(losses, 1), "grad_eff": first, "change": change,
+            "w0_sum": {k: v.double().flatten(1).sum(1) for k, v in w0.items()},
+            "rows": perm[:, :k_check * feed.batch]}
+
+
+def setup(ctx) -> SimpleNamespace:
+    data = make_data(ctx)
+    prog = (_classifier if ctx.cfg["fit"]["kind"] == "classifier" else _synthesis)(ctx, data)
+    w0 = fit_weights(ctx, data, ctx.device)
+    feed = Feed(ctx, prog.tensors)
+    readings = first_epoch(ctx, prog, feed, w0)
     del w0
     _sync(ctx.device)
     return SimpleNamespace(data=data, prog=prog, feed=feed, readings=readings)
@@ -272,7 +297,7 @@ def reference(ctx, r: Dict, device, precision: str = "f64", half_batch: bool = F
     prec = BY_NAME[precision]
     data = r["data"]
     m = cfg["models"][fit["model"]]
-    arch = ARCHS[m["arch"]]
+    arch = module_of(m)
     b, k_check = mix["batch"], mix["check_steps"]
     hyper = {k: fit[k] for k in ("learning_rate", "weight_decay", "b1", "b2", "eps")}
     decay_all = fit["kind"] == "synthesis"
@@ -349,17 +374,23 @@ def control(ctx, mode: str) -> Dict[str, float]:
     port's place, against the float64 reference, from the inputs a run
     with this seed makes."""
     data = make_data(ctx)
+    rows = permutation(feed_generator(ctx), len(data.seeds), data.rows.shape[1])
+    return stand_in(ctx, data, rows[:, :ctx.mix["check_steps"] * ctx.mix["batch"]].cpu().numpy(),
+                    mode)
+
+
+def stand_in(ctx, data, rows: np.ndarray, mode: str, gaps_of=gaps) -> Dict[str, float]:
+    """:func:`control` on the fit's ``data`` whose first steps take the
+    positions ``rows`` (seeds, check_steps x batch) of each seed's padded
+    train rows, read by ``gaps_of`` (the driver's numbers)."""
     w0 = fit_weights(ctx, data, ctx.device)
     r = {"data": data, "w0_sum": {k: v.double().flatten(1).sum(1).cpu().numpy()
                                   for k, v in w0.items()},
-         "rows": permutation(feed_generator(ctx), len(data.seeds), data.rows.shape[1])
-         [:, :ctx.mix["check_steps"] * ctx.mix["batch"]].cpu().numpy()}
+         "rows": rows}
     del w0
     half = mode == "half_batch"
-    stand_in = reference(ctx, r, ctx.device, "f32" if half else mode, half_batch=half)["seeds"]
-    r.update(loss=np.array([s["loss"] for s in stand_in]),
-             grad_eff={k: np.array([s["grad_eff"][k] for s in stand_in])
-                       for k in stand_in[0]["grad_eff"]},
-             change={k: np.array([s["change"][k] for s in stand_in])
-                     for k in stand_in[0]["change"]})
-    return gaps(r, reference(ctx, r, ctx.device))
+    ran = reference(ctx, r, ctx.device, "f32" if half else mode, half_batch=half)["seeds"]
+    r.update(loss=np.array([s["loss"] for s in ran]),
+             grad_eff={k: np.array([s["grad_eff"][k] for s in ran]) for k in ran[0]["grad_eff"]},
+             change={k: np.array([s["change"][k] for s in ran]) for k in ran[0]["change"]})
+    return gaps_of(r, reference(ctx, r, ctx.device))

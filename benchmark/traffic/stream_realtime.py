@@ -13,6 +13,9 @@ none is skipped. Every window's outputs are kept for the reference.
 
 Mix parameters: ``window``, ``hop``, ``sample_rate_hz``,
 ``warmup_windows``, ``trace_windows``, ``margin``.
+
+``FAULTS``: what the benchmark's tests break underneath
+(``tests/test_bench_faults.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 
 from benchmark.harness import decode_check, inputs, program, weights
 
+FAULTS = ("answer_altered", "waveform_altered")
 _SPIN_S = 0.002  # the last part of a wait is spun, so that waking is on time
 
 
