@@ -386,6 +386,66 @@ def k2_step_times(kernel, plain, library, name) -> dict:
     return {"us": k_us, "plain_us": plain_us, "library_us": lib_us, "call_us": host_us}
 
 
+def k3_phase(card: str) -> dict:
+    """K3 (``csrc/gru_step.cu``, on the tiles it shares with K2) at the GRU
+    shape of ``gru_ctc_fit.s1_b64`` (2 directions x 64 rows x H 1,024),
+    float32: one forward and one reverse step against the plain version on
+    the card (5e-5, the summation order of the product), the device µs of
+    each beside its bound (weight bytes once at 3.35 TB/s, or FLOPs at 67
+    TFLOP/s), the plain version's device µs, cuBLAS's product alone and the
+    host µs of an op call."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.ops import gru
+
+    s, b, hid = 2, 64, 1024
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, device="cuda", generator=gen) * scale
+
+    h = draw(s, b, hid, scale=0.3)
+    wt = draw(s, hid, 3 * hid, scale=hid ** -0.5)
+    xg_t, bh = draw(s, b, 3 * hid, scale=0.5), draw(s, 3 * hid, scale=0.1)
+    outs = [torch.empty_like(h) for _ in range(2)]
+    gates = [torch.empty((4, s, b, hid), device="cuda") for _ in range(2)]
+    kernel = lambda: torch.ops.tonal.gru_step(h, wt, xg_t, bh, outs[0], gates[0], True)  # noqa: E731
+    plain = lambda: gru._step_plain(h, wt, xg_t, bh, outs[1], gates[1], True)  # noqa: E731
+    kernel()
+    plain()
+    worst = max((outs[0] - outs[1]).abs().max().item(), (gates[0] - gates[1]).abs().max().item())
+    dgh_t, d_h = draw(s, b, 3 * hid, scale=0.1), draw(s, b, hid)
+    carry = [draw(s, b, hid, scale=0.1) for _ in range(2)]
+    carry[1].copy_(carry[0])
+    dgx = [torch.empty((s, b, 3 * hid), device="cuda") for _ in range(4)]
+    rkernel = lambda: torch.ops.tonal.gru_step_backward(  # noqa: E731
+        dgh_t, wt, d_h, h, gates[1], carry[0], dgx[0], dgx[1])
+    rplain = lambda: gru._step_backward_plain(  # noqa: E731
+        dgh_t, wt, d_h, h, gates[1], carry[1], dgx[2], dgx[3])
+    rkernel()
+    rplain()
+    worst = max(worst, (dgx[0] - dgx[2]).abs().max().item(), (dgx[1] - dgx[3]).abs().max().item(),
+                (carry[0] - carry[1]).abs().max().item())
+    check(worst <= 5e-5, f"K3 kernel vs plain {worst}")
+    flops = 2.0 * s * b * hid * 3 * hid
+    nbytes = 4.0 * (s * hid * 3 * hid + s * b * (hid + 3 * hid))
+    bound_us = max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_FLOPS) * 1e6
+    row = {"cell": "gru_ctc_fit.s1_b64", "seeds": s, "rows": b, "H": hid,
+           "tile": gru.step_tile(s, b, hid), "bound_us": bound_us,
+           "bound_by": "bytes" if nbytes / PEAK_BYTES_S >= flops / PEAK_F32_FLOPS else "FLOPs",
+           "forward": k2_step_times(kernel, plain, lambda: torch.matmul(h, wt), "::gru_"),
+           "reverse": k2_step_times(rkernel, rplain,
+                                    lambda: torch.matmul(dgh_t, wt.transpose(1, 2)), "::gru_")}
+    parts = [f"{d} {row[d]['us']:.1f} us (plain {row[d]['plain_us']:.1f}, cuBLAS product "
+             f"{row[d]['library_us']:.1f}, op call {row[d]['call_us']:.1f} host)"
+             for d in ("forward", "reverse")]
+    print(f"K3 gru_step S{s} x B{b} x H{hid} tile {row['tile']}: {'; '.join(parts)}; "
+          f"bound {bound_us:.1f} us ({row['bound_by']}) [{card}]")
+    return {"name": "gru_step", "route": "cuda",
+            "source": "decode_tonal_langauge_tpu_torch/csrc/gru_step.cu",
+            "replaces": None,  # no Pallas kernel: the JAX package has no GRU
+            "max_abs_err": worst, "shapes": [row]}
+
 def k2_phase(card: str) -> dict:
     """K2 (``csrc/lstm_step.cu``) at every LSTM shape of the benchmark's
     cells, float32: one forward step (and one reverse step where the cell
@@ -3614,7 +3674,7 @@ def main() -> None:
         print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
         return out
 
-    kernels = [timed(k1_phase, card), timed(k2_phase, card)]
+    kernels = [timed(k1_phase, card), timed(k2_phase, card), timed(k3_phase, card)]
     timed(preprocess_phase, card)
     timed(training_phase, card)
     timed(seed_parallel_phase, card)

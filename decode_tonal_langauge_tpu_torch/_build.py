@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled for
 ``sm_90a`` into a shared library under ``build/kernels/`` beside the
 package (a directory ``.gitignore`` lists), then loaded with ``ctypes``.
-The library's file name carries a hash of the source and flags, so an
-edited source is rebuilt and a stale library is never loaded. Nothing is
+The library's file name carries a hash of the source, the headers of
+``csrc/`` (``step_tiles.cuh``: the recurrent step tiles the LSTM and GRU
+steps share) and the flags, so an edited source or header is rebuilt and
+a stale library is never loaded. Nothing is
 built at import: the CPU tests import every module where no ``nvcc``
 exists.
 """
@@ -22,7 +24,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("iir_df2t", "lstm_step")
+SOURCES = ("iir_df2t", "lstm_step", "gru_step")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,7 +50,8 @@ def _nvcc() -> str:
 
 def _paths(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    key = src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     digest = hashlib.sha256(key).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 

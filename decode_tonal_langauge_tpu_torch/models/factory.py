@@ -2,7 +2,9 @@
 kwargs, and ``build_synthesis_model``.
 
 Counterpart of ``decode_tonal_langauge_tpu/models/factory.py`` and of
-``training/train_synthesizer.build_synthesis_model``. A model is named by
+``training/train_synthesizer.build_synthesis_model``; the sequence
+decoders (``models/sequence.py``, which the JAX package lacks) are built by
+``build_sequence_model``. A model is named by
 the serving CLI's short name (``CNN``, ``CNNRNN``, ``ShallowNN``,
 ``logistic``) or by a dotted path: the JAX package's and the reference's
 paths resolve to the port's classes (the registry maps the latter onto
@@ -24,6 +26,7 @@ from torch import nn
 from ..registry import _PKG, canonical_module_path
 from .base import compute_dtype
 from .deep import CNNClassifier, CNNRNNClassifier
+from .sequence import GRUDecoder
 from .simple import LogisticRegressionClassifier, ShallowNNClassifier
 from .synthesis import SynthesisLite, SynthesisModelCNN
 
@@ -40,6 +43,7 @@ CLASSIFIER_SHORT_NAMES = {
 }
 SYNTHESIS_MODELS = {"SynthesisFull": SynthesisModelCNN,
                     "SynthesisLite": SynthesisLite}
+SEQUENCE_MODELS = {"GRUDecoder": GRUDecoder}
 
 
 def resolve_model_class(name: str) -> type:
@@ -118,3 +122,13 @@ def build_synthesis_model(
         output_dim=output_dim, n_channels=n_channels, n_timepoints=n_timepoints,
         dtype=dtype,
     )
+
+
+def build_sequence_model(name: str, **kwargs: Any) -> nn.Module:
+    """A sequence decoder by name (``GRUDecoder``: the GRU-CTC phoneme
+    decoder), built with ``kwargs`` (its constructor's)."""
+    if name not in SEQUENCE_MODELS:
+        raise ValueError(
+            f"Unknown sequence model '{name}'; expected one of {sorted(SEQUENCE_MODELS)}."
+        )
+    return SEQUENCE_MODELS[name](**kwargs)

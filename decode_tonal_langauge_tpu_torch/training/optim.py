@@ -1,4 +1,5 @@
-"""NAdam with decay/no-decay parameter groups, the optax update written out.
+"""NAdam with decay/no-decay parameter groups, the optax update written out;
+and Adam with L2, ``torch.optim.Adam``'s update (:class:`Adam`).
 
 Counterpart of ``decode_tonal_langauge_tpu/training/optim.py``, whose
 optimizer is ``optax.chain(add_decayed_weights(wd, mask=ndim >= 2),
@@ -36,6 +37,8 @@ decayed.
 from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional, Sequence, Union
+
+import math
 
 import numpy as np
 import torch
@@ -147,3 +150,42 @@ class SeedNAdam(NAdam):
         self.params = list(params)
         self.mu = [m[keep.to(m.device)] for m in self.mu]
         self.nu = [v[keep.to(v.device)] for v in self.nu]
+
+
+class Adam(NAdam):
+    """``torch.optim.Adam`` with ``weight_decay`` (an L2 term added to the
+    gradient of every parameter, before the moments), the optimizer of the
+    GRU-CTC decoder's published training (``training/sequence_trainer.py``).
+    One step, ``t`` the step count after increment::
+
+        g = grad + wd * p
+        m = m + (1 - b1) * (g - m)
+        v = b2 * v + (1 - b2) * g * g
+        p = p - lr / (1 - b1**t) * m / (sqrt(v) / sqrt(1 - b2**t) + eps)
+
+    run as ``torch.optim.Adam``'s multi-tensor path runs it: each line one
+    ``torch._foreach_*`` call over every parameter, a handful of launches a
+    step on the card. It keeps :class:`NAdam`'s moments, step count and
+    state dict."""
+
+    def __init__(self, params: Union[nn.Module, Iterable[torch.Tensor]], learning_rate: float,
+                 weight_decay: float = 0.0, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8) -> None:
+        super().__init__(params, learning_rate, weight_decay, b1, b2, eps, decay_all=True)
+
+    @torch.no_grad()
+    def step(self, grads: Optional[Sequence[torch.Tensor]] = None) -> None:
+        with span("optim.adam"):
+            grads = [p.grad for p in self.params] if grads is None else list(grads)
+            b1, b2 = self.b1, self.b2
+            self.count += 1
+            if self.weight_decay:
+                grads = torch._foreach_add(grads, self.params, alpha=self.weight_decay)
+            torch._foreach_lerp_(self.mu, grads, 1 - b1)
+            torch._foreach_mul_(self.nu, b2)
+            torch._foreach_addcmul_(self.nu, grads, grads, 1 - b2)
+            denom = torch._foreach_sqrt(self.nu)
+            torch._foreach_div_(denom, math.sqrt(1 - b2 ** self.count))
+            torch._foreach_add_(denom, self.eps)
+            torch._foreach_addcdiv_(self.params, self.mu, denom,
+                                    -self.learning_rate / (1 - b1 ** self.count))

@@ -57,13 +57,12 @@ from torch.func import vmap
 
 from ..data.utils import tone_dynamics_table
 from ..models.base import init_params
-from ..ops.dropout import set_dropout_generator
 from ..parallel.mesh import DataParallelLayout
 from ..runtime.device import DeviceLike, exact_f32, resolve_device
 from ..runtime.profiling import span
 from .optim import NAdam, SeedNAdam
 from .seed_stack import SeedStack
-from .trainer import accept_jax_only
+from .trainer import accept_jax_only, restore_state, save_state, seeded_generators
 
 _DB = 10.0 / math.log(10.0)
 
@@ -227,9 +226,7 @@ class SynthesisTrainer:
                     decay_all=True)
 
     def _reset_generators(self) -> None:
-        self._perm_gen = torch.Generator().manual_seed(self.seed)
-        self._dropout_gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        set_dropout_generator(self.model, self._dropout_gen)
+        self._perm_gen, self._dropout_gen = seeded_generators(self.seed, self.device, self.model)
         self._layout.attach(self.model)
 
     @property
@@ -316,30 +313,18 @@ class SynthesisTrainer:
 
     # ------------------------------------------------------------------
     def _save_train_state(self, path: str, epochs_done: int, history: np.ndarray) -> None:
-        from ..runtime.checkpoint import save_train_state
-
-        save_train_state(path, {
-            "params": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "perm_rng": self._perm_gen.get_state(),
-            "dropout_rng": self._dropout_gen.get_state(),
-            "epochs_done": int(epochs_done),
-            "history": torch.from_numpy(np.asarray(history, np.float32)),
-        })
+        save_state(path, self.model, self.optimizer, self._perm_gen, self._dropout_gen,
+                   epochs_done=int(epochs_done),
+                   history=torch.from_numpy(np.asarray(history, np.float32)))
 
     def _restore_train_state(self, path: str):
         """Returns (epochs_done, history) and restores the weights,
         optimizer and generators, or None when no state exists at
         ``path``. Call after :meth:`init`."""
-        from ..runtime.checkpoint import load_train_state, train_state_exists
-
-        if not train_state_exists(path):
+        state = restore_state(path, self.model, self.optimizer, self._perm_gen,
+                              self._dropout_gen)
+        if state is None:
             return None
-        state = load_train_state(path)
-        self.model.load_state_dict(state["params"])
-        self.optimizer.load_state_dict(state["optimizer"])
-        self._perm_gen.set_state(state["perm_rng"])
-        self._dropout_gen.set_state(state["dropout_rng"])
         return int(state["epochs_done"]), state["history"].numpy().reshape(-1, 2)
 
     def load_checkpoint(self, path: str) -> None:

@@ -68,19 +68,25 @@ HISTORY_KEYS = ("train/loss", "train/accuracy", "train/weight_norm",
                 "val/loss", "val/accuracy")
 
 
+def padded_rows(n: int, batch_size: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The rows of a set of ``n`` padded to whole batches (at least one) by
+    repeating the first, and their weights: 1 for the set's own rows, 0 for
+    the padding (which stays in the shuffle)."""
+    n_batches = max(1, -(-n // batch_size))
+    pad = n_batches * batch_size - n
+    rows = np.concatenate([np.arange(n), np.zeros(pad, dtype=np.int64)])
+    w = np.concatenate([np.ones(n, dtype=np.float32), np.zeros(pad, dtype=np.float32)])
+    return rows, w
+
+
 def _stack_batches(x: np.ndarray, y: np.ndarray, batch_size: int):
     """Pad to a multiple of batch_size and reshape to (n_batches, B, ...).
 
     Returns (xb, yb, wb) where ``wb`` masks out padding samples.
     """
-    n = x.shape[0]
-    n_batches = max(1, -(-n // batch_size))
-    pad = n_batches * batch_size - n
-    w = np.ones(n, dtype=np.float32)
-    if pad:
-        x = np.concatenate([x, np.repeat(x[:1], pad, axis=0)], axis=0)
-        y = np.concatenate([y, np.repeat(y[:1], pad, axis=0)], axis=0)
-        w = np.concatenate([w, np.zeros(pad, dtype=np.float32)])
+    rows, w = padded_rows(x.shape[0], batch_size)
+    x, y = x[rows], y[rows]
+    n_batches = len(rows) // batch_size
     xb = x.reshape((n_batches, batch_size) + x.shape[1:])
     yb = y.reshape((n_batches, batch_size))
     wb = w.reshape((n_batches, batch_size))
@@ -189,6 +195,46 @@ def write_confusion_csv(path: str, cm: np.ndarray) -> None:
         csv.writer(f, lineterminator="\n").writerows(np.asarray(cm).tolist())
 
 
+def seeded_generators(seed: int, device: torch.device, model: nn.Module
+                      ) -> Tuple[torch.Generator, torch.Generator]:
+    """A trainer's two generators, both seeded with ``seed``: one on the
+    host for the epochs' permutations (so the card and the CPU see the
+    same batch order), one on the device for dropout, which every
+    ``ops/dropout.Dropout`` in ``model`` is pointed at."""
+    perm_gen = torch.Generator().manual_seed(seed)
+    dev_gen = torch.Generator(device=device).manual_seed(seed)
+    set_dropout_generator(model, dev_gen)
+    return perm_gen, dev_gen
+
+
+def save_state(path: str, model: nn.Module, optimizer, perm_gen: torch.Generator,
+               dev_gen: torch.Generator, **extra) -> None:
+    """A trainer's full state at ``path``: the weights, the optimizer's
+    state, both generators' states and the trainer's own ``extra``."""
+    from ..runtime.checkpoint import save_train_state
+
+    save_train_state(path, {"params": model.state_dict(), "optimizer": optimizer.state_dict(),
+                            "perm_rng": perm_gen.get_state(), "dropout_rng": dev_gen.get_state(),
+                            **extra})
+
+
+def restore_state(path: str, model: nn.Module, optimizer, perm_gen: torch.Generator,
+                  dev_gen: torch.Generator) -> Optional[Dict[str, Any]]:
+    """Restores what :func:`save_state` wrote at ``path`` into ``model``,
+    ``optimizer`` and the generators, and returns the whole state (for the
+    trainer's own entries); None when no state exists there."""
+    from ..runtime.checkpoint import load_train_state, train_state_exists
+
+    if not train_state_exists(path):
+        return None
+    state = load_train_state(path)
+    model.load_state_dict(state["params"])
+    optimizer.load_state_dict(state["optimizer"])
+    perm_gen.set_state(state["perm_rng"])
+    dev_gen.set_state(state["dropout_rng"])
+    return state
+
+
 # Keys of the JAX trainers' constructors that change nothing here:
 # ``scan_unroll`` unrolls the JAX batch scan, a compiler knob whose
 # histories are identical by design (batches run in a Python loop here).
@@ -263,9 +309,7 @@ class ClassifierTrainer:
         self._reset_generators()
 
     def _reset_generators(self) -> None:
-        self._perm_gen = torch.Generator().manual_seed(self.seed)
-        self._dropout_gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        set_dropout_generator(self.model, self._dropout_gen)
+        self._perm_gen, self._dropout_gen = seeded_generators(self.seed, self.device, self.model)
         self._layout.attach(self.model)
 
     @property
@@ -367,32 +411,20 @@ class ClassifierTrainer:
     # ------------------------------------------------------------------
     def _save_train_state(self, path, es: EarlyStop, epochs_done: int,
                           history: np.ndarray) -> None:
-        from ..runtime.checkpoint import save_train_state
-
-        save_train_state(path, {
-            "params": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "perm_rng": self._perm_gen.get_state(),
-            "dropout_rng": self._dropout_gen.get_state(),
-            "es": {"best_val": float(es[0]), "best_epoch": int(es[1]),
-                   "bad": int(es[2]), "stopped": bool(es[3])},
-            "epochs_done": int(epochs_done),
-            "history": torch.from_numpy(np.asarray(history, np.float32)),
-        })
+        save_state(path, self.model, self.optimizer, self._perm_gen, self._dropout_gen,
+                   es={"best_val": float(es[0]), "best_epoch": int(es[1]),
+                       "bad": int(es[2]), "stopped": bool(es[3])},
+                   epochs_done=int(epochs_done),
+                   history=torch.from_numpy(np.asarray(history, np.float32)))
 
     def _restore_train_state(self, path):
         """Returns (es, epochs_done, history) and restores the weights,
         optimizer and generators, or None when no state exists at
         ``path``. Call after :meth:`init`."""
-        from ..runtime.checkpoint import load_train_state, train_state_exists
-
-        if not train_state_exists(path):
+        state = restore_state(path, self.model, self.optimizer, self._perm_gen,
+                              self._dropout_gen)
+        if state is None:
             return None
-        state = load_train_state(path)
-        self.model.load_state_dict(state["params"])
-        self.optimizer.load_state_dict(state["optimizer"])
-        self._perm_gen.set_state(state["perm_rng"])
-        self._dropout_gen.set_state(state["dropout_rng"])
         e = state["es"]
         es = (float(e["best_val"]), int(e["best_epoch"]), int(e["bad"]), bool(e["stopped"]))
         history = state["history"].numpy().reshape(-1, len(HISTORY_KEYS) + 1)
