@@ -32,6 +32,17 @@ present, or when the port's sources are not beside it.
    a phase that trains an LSTM must have launched forward and reverse
    steps, serving forward steps alone, the preprocess phase none. The
    counts go on the kernels line as K2's ``phase_launches``.
+   K3 phase: one forward and one reverse step of ``csrc/gru_step.cu`` at the
+   GRU shape of ``gru_ctc_fit.s1_b64`` against its plain version, timed as
+   K2's.
+   K4 phase: one step of ``csrc/nadam_step.cu`` on the optimizer of each
+   NAdam cell (SynthesisFull x 4 seeds, CNN-RNN x 4, CNN-RNN x 1; float32)
+   against the plain chain on the card, bit for bit; its device µs a step
+   beside its bound (28 bytes an element at 3.35 TB/s), the plain chain's
+   device µs and launches, and a step call's host µs. Every later phase
+   counts K4's launches with K2's (``k4_reset``, in ``k2_record``): they
+   must equal the NAdam steps taken on the card, counted at
+   ``NAdam.step``; they go on the kernels line as K4's ``phase_launches``.
 3. Preprocess phase: the stage's entry point ``preprocess.main.run`` on
    the card over one subject of two blocks, each 128 channels x 60 s of
    seeded noise plus a passthrough audio track, at 3052 Hz (the polyphase
@@ -529,11 +540,95 @@ def k2_phase(card: str) -> dict:
     }
 
 
+# The NAdam cells' optimizers: (cell, model, seeds, options). Every tensor
+# of SynthesisFull decays; the CNN-RNN's decay mask is per seed.
+K4_CELLS = (
+    ("synthfull_fit.s4_b8", "SynthesisFull", 4,
+     {"learning_rate": 5e-4, "weight_decay": 0.004, "decay_all": True}),
+    ("cnnrnn_fit.s4_b32", "CNNRNN", 4, {"learning_rate": 5e-4, "weight_decay": 0.01}),
+    ("cnnrnn_fit.s1_b16", "CNNRNN", 1, {"learning_rate": 5e-4, "weight_decay": 0.01}),
+)
+
+
+def k4_phase(card: str) -> dict:
+    """K4 (``csrc/nadam_step.cu``) on the optimizer of each NAdam cell
+    (the model's parameter shapes, stacked over its seeds), float32: one
+    step against the plain chain on the card (bit for bit), K4's device µs
+    a step (``torch.profiler``) beside its bound (28 bytes an element at
+    3.35 TB/s), the plain chain's device µs a step (every kernel of it) and
+    the host µs of a step call. No PyTorch call computes optax's NAdam, so
+    there is no library time."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch._timing import device_events
+    from decode_tonal_langauge_tpu_torch.models.factory import (build_synthesis_model,
+                                                                get_classifier_by_name)
+    from decode_tonal_langauge_tpu_torch.training import optim
+
+    rows, launches0 = [], optim.LAUNCHES
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for cell, arch, seeds, kw in K4_CELLS:
+        with torch.device("meta"):
+            model = (build_synthesis_model(arch, 2560, 40, 200, dtype="float32")
+                     if arch == "SynthesisFull" else
+                     get_classifier_by_name(arch, 4, 6, 200, classifier_kwargs={"lstm_dim": 800}))
+        shapes = [(seeds,) + tuple(p.shape) if seeds > 1 else tuple(p.shape)
+                  for p in model.parameters()]
+        kind = optim.SeedNAdam if seeds > 1 else optim.NAdam
+        params = [torch.randn(s, device="cuda", generator=gen) for s in shapes]
+        grads = [torch.randn(s, device="cuda", generator=gen) for s in shapes]
+        opt = kind([p.clone() for p in params], **kw)
+        ref = kind(params, **kw)
+        opt.step(grads)
+        ref.count += 1
+        optim.nadam_plain(ref.params, grads, ref.mu, ref.nu, ref.decay, ref.hyper())
+        check(all(torch.equal(a, b) for a, b in zip(opt.params + opt.mu + opt.nu,
+                                                    ref.params + ref.mu + ref.nu)),
+              f"K4 {cell}: a step differs from the plain chain's on the card")
+        events = device_events(lambda: opt.step(grads), 10)
+        k_us = sum(ms for ms, _, n in events if "nadam_kernel" in n) * 1e3
+        k_launches = sum(c for _, c, n in events if "nadam_kernel" in n)
+        plain = lambda: optim.nadam_plain(  # noqa: E731
+            ref.params, grads, ref.mu, ref.nu, ref.decay, ref.hyper())
+        plain_events = device_events(plain, 3)
+        plain_us = sum(ms for ms, _, _ in plain_events) * 1e3
+        plain_launches = sum(c for _, c, _ in plain_events)
+        check(k_us > 0 and plain_us > 0, f"torch.profiler saw no device time for K4 {cell}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            opt.step(grads)
+        call_us = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in params)
+        bound_us = 28.0 * n / PEAK_BYTES_S * 1e6
+        rows.append({"cell": cell, "tensors": len(shapes), "elements": n, "us": k_us,
+                     "launches_per_step": k_launches, "bound_us": bound_us, "bound_by": "bytes",
+                     "plain_us": plain_us, "plain_launches_per_step": plain_launches,
+                     "call_us": call_us, "library_us": None})
+        print(f"K4 nadam_step {cell}: {len(shapes)} tensors, {n:,} elements: {k_us:.1f} us a "
+              f"step ({k_launches:g} launch; {100 * bound_us / k_us:.1f}% of the bound "
+              f"{bound_us:.1f} us, bytes), plain chain {plain_us:.1f} us ({plain_launches:g} "
+              f"launches), step call {call_us:.1f} us host [{card}]")
+        del params, grads, opt, ref
+        torch.cuda.empty_cache()
+    check(optim.LAUNCHES > launches0, "K4 was not launched")
+    return {"name": "nadam_step", "route": "cuda",
+            "source": "decode_tonal_langauge_tpu_torch/csrc/nadam_step.cu",
+            "replaces": None,  # no Pallas kernel: the JAX package leaves optax's NAdam to XLA
+            "counterpart": "decode_tonal_langauge_tpu/training/optim.py (optax nadam)",
+            "launches": optim.LAUNCHES - launches0, "max_abs_err": 0.0, "shapes": rows}
+
+
 # K2's launches in each phase after its own (the kernels line's
 # ``phase_launches``), and the time steps the LSTM scans ran on the card,
 # counted at the scans apart from the kernels' launch counters.
 K2_PHASES: dict = {}
 K2_STEPS = {"forward": 0, "reverse": 0, "first_delta": 0}
+# K4's launches in each phase after its own, and the NAdam steps taken on
+# the card, counted at ``NAdam.step`` apart from K4's launch counter.
+K4_PHASES: dict = {}
+K4_STEPS = {"steps": 0}
 
 
 def k2_reset() -> None:
@@ -560,6 +655,33 @@ def k2_reset() -> None:
         lstm._scan, lstm._scan_backward = counted_scan, counted_scan_backward
     lstm.FORWARD_LAUNCHES = lstm.REVERSE_LAUNCHES = lstm.DELTA_LAUNCHES = 0
     K2_STEPS.update(forward=0, reverse=0, first_delta=0)
+    k4_reset()
+
+
+def k4_reset() -> None:
+    """Zero K4's launch counter and ``K4_STEPS``; the first call wraps
+    ``NAdam.step`` (``SeedNAdam``'s too) to count the steps it takes on
+    the card into ``K4_STEPS``."""
+    from decode_tonal_langauge_tpu_torch.training import optim
+
+    if not getattr(optim.NAdam.step, "counted", False):
+        step = optim.NAdam.step
+
+        def counted_step(self, grads=None):
+            if any(p.is_cuda for p in self.params):
+                K4_STEPS["steps"] += 1
+            return step(self, grads)
+
+        counted_step.counted = True
+        optim.NAdam.step = counted_step
+    optim.LAUNCHES = 0
+    K4_STEPS["steps"] = 0
+
+
+def k4_counts() -> dict:
+    from decode_tonal_langauge_tpu_torch.training import optim
+
+    return {"launches": optim.LAUNCHES, "steps": K4_STEPS["steps"]}
 
 
 def k2_launches() -> dict:
@@ -592,6 +714,14 @@ def k2_record(phase: str, device: str, runs, ranks=()) -> dict:
                   + {None: "runs no LSTM", "serve": "serves LSTMs and trains none",
                      "train": "trains LSTMs"}[runs])
     K2_PHASES[phase] = {**got, "ranks": [c["launches"] for c in ranks]} if ranks else got
+    k4, k4_ranks = k4_counts(), [c["k4"] for c in ranks]
+    print(f"K4 launches during the {phase}: {k4['launches']} (NAdam steps on the card: "
+          f"{k4['steps']})" + "".join(f"; rank {r}: {c['launches']} ({c['steps']})"
+                                      for r, c in enumerate(k4_ranks)))
+    for who, c in [("", k4)] + [(f" rank {r}", c) for r, c in enumerate(k4_ranks)]:
+        check(c["launches"] == c["steps"], f"K4's launches during the {phase}{who} "
+              f"{c['launches']} differ from the NAdam steps on the card {c['steps']}")
+    K4_PHASES[phase] = {**k4, "ranks": k4_ranks} if ranks else k4
     return got
 
 
@@ -3187,7 +3317,7 @@ def parallel_worker(spec_path: str) -> None:
         out["serving"] = {"summary": serving.run(serving.build_parser().parse_args(
             spec["serving"])), "wall_s": time.perf_counter() - t0}
     out["k1"] = cuda_iir.LAUNCHES
-    out["k2"] = {"launches": k2_launches(), "steps": dict(K2_STEPS)}
+    out["k2"] = {"launches": k2_launches(), "steps": dict(K2_STEPS), "k4": k4_counts()}
     out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20 if on_card else float("nan")
     torch.save(out, os.path.join(os.path.dirname(spec_path), f"rank{rank}.pt"))
     distributed.barrier("worker:done")
@@ -3674,7 +3804,8 @@ def main() -> None:
         print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
         return out
 
-    kernels = [timed(k1_phase, card), timed(k2_phase, card), timed(k3_phase, card)]
+    kernels = [timed(k1_phase, card), timed(k2_phase, card), timed(k3_phase, card),
+               timed(k4_phase, card)]
     timed(preprocess_phase, card)
     timed(training_phase, card)
     timed(seed_parallel_phase, card)
@@ -3690,6 +3821,7 @@ def main() -> None:
     timed(demo_phase, card)
     kernels[0]["phase_launches"] = {"parity phase": timed(parity_phase, card)}
     kernels[1]["phase_launches"] = K2_PHASES
+    kernels[3]["phase_launches"] = K4_PHASES
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
