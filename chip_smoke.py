@@ -240,7 +240,7 @@ def k1_phase(card: str) -> dict:
     import scipy.signal as sps
     import torch
 
-    from decode_tonal_langauge_tpu_torch._timing import kernel_ms, time_ms
+    from decode_tonal_langauge_tpu_torch.runtime.profiling import kernel_ms, time_ms
     from decode_tonal_langauge_tpu_torch.ops import cuda_iir, iir
 
     rows, t = 128, 183120
@@ -379,7 +379,7 @@ def k2_step_times(kernel, plain, library, name) -> dict:
     and the host µs of one step op call made back to back."""
     import torch
 
-    from decode_tonal_langauge_tpu_torch._timing import device_events
+    from decode_tonal_langauge_tpu_torch.runtime.profiling import device_events
 
     runs = 20
     both = device_events(lambda: (kernel(), library()), runs)
@@ -560,7 +560,7 @@ def k4_phase(card: str) -> dict:
     there is no library time."""
     import torch
 
-    from decode_tonal_langauge_tpu_torch._timing import device_events
+    from decode_tonal_langauge_tpu_torch.runtime.profiling import device_events
     from decode_tonal_langauge_tpu_torch.models.factory import (build_synthesis_model,
                                                                 get_classifier_by_name)
     from decode_tonal_langauge_tpu_torch.training import optim
@@ -815,7 +815,7 @@ def preprocess_times(x: np.ndarray, raw_sf: float, card: str) -> None:
     import torch
 
     from decode_tonal_langauge_tpu_torch import registry
-    from decode_tonal_langauge_tpu_torch._timing import device_events
+    from decode_tonal_langauge_tpu_torch.runtime.profiling import device_events
     from decode_tonal_langauge_tpu_torch.preprocess import preprocessor
 
     def device_ms(fn):
@@ -1328,7 +1328,7 @@ def step_profile(step) -> dict:
     its device work from torch.profiler: busy ms, operations, top rows."""
     import torch
 
-    from decode_tonal_langauge_tpu_torch._timing import device_events
+    from decode_tonal_langauge_tpu_torch.runtime.profiling import device_events
 
     for _ in range(3):
         step()
@@ -1993,7 +1993,7 @@ def anova_times(card: str, sample_path: str, device: str) -> None:
     phase's data (torch.profiler), on the card only."""
     import torch
 
-    from decode_tonal_langauge_tpu_torch._timing import device_events
+    from decode_tonal_langauge_tpu_torch.runtime.profiling import device_events
     from decode_tonal_langauge_tpu_torch.ops import anova
 
     data = np.load(sample_path)
@@ -3178,7 +3178,7 @@ def par_allreduce_ms(trainer, device: str) -> float:
     import torch
     import torch.distributed as dist
 
-    from decode_tonal_langauge_tpu_torch._timing import time_ms
+    from decode_tonal_langauge_tpu_torch.runtime.profiling import time_ms
     from decode_tonal_langauge_tpu_torch.parallel.distributed import barrier
 
     layout = trainer._layout

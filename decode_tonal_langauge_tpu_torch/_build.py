@@ -9,6 +9,11 @@ steps share) and the flags, so an edited source or header is rebuilt and
 a stale library is never loaded. Nothing is
 built at import: the CPU tests import every module where no ``nvcc``
 exists.
+
+It is also the one boundary between Python and the kernels: a kernel
+module states its entry points' argument types as a table
+(:func:`library`), passes :func:`stream` as the launch's stream, and
+hands each launch's return code to :func:`launched`.
 """
 
 from __future__ import annotations
@@ -19,8 +24,11 @@ import os
 import shutil
 import subprocess
 import threading
+from functools import lru_cache
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Mapping, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -29,6 +37,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# The argument types of the entry points' signature tables.
+PTR, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 # nvcc's output per source from the last build in this process (ptxas
 # prints each kernel's registers, shared memory and spills).
@@ -94,3 +105,34 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(out))
             _LIBS[name] = lib
         return lib
+
+
+def library(name: str, entry_points: Mapping[str, Sequence[type]]) -> Callable[[], ctypes.CDLL]:
+    """A function returning the library of ``csrc/<name>.cu``, built and
+    loaded at its first call, each entry point of ``entry_points`` typed
+    with those argument types and an ``int`` result (every entry point of
+    ``csrc/`` returns one: a ``cudaError_t``, a tile or a limit)."""
+
+    @lru_cache(maxsize=1)
+    def bound() -> ctypes.CDLL:
+        lib = load(name)
+        for entry, argtypes in entry_points.items():
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = list(argtypes), I32
+        return lib
+
+    return bound
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current raw CUDA stream of ``t``'s device: a launch's stream."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def launched(err: int, what: str, detail: str, *args) -> None:
+    """Raise if a launch returned a CUDA error: ``what`` names the kernel
+    and the launch, ``detail.format(*args)`` the call's sizes (formatted
+    only on failure)."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError_t {err} "
+                           f"({detail.format(*args)})")

@@ -36,6 +36,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._build import I32, I64, PTR, launched, library, stream
+
 MAX_ORDER = 16  # largest order with a register instance; = MAX_ORDER in csrc/iir_df2t.cu
 WINDOW = 32  # samples staged per chunk at a time; = WINDOW in csrc/iir_df2t.cu
 CHUNK = 512  # chunk length L, a multiple of WINDOW; chosen with scripts/k1_sweep.py
@@ -193,21 +195,12 @@ def _device_tables(bn: Tuple[float, ...], an: Tuple[float, ...], chunk: int,
     return P, coef
 
 
-@lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    """``csrc/iir_df2t.cu`` built, loaded and its entry points typed."""
-    from .. import _build
-
-    lib = _build.load("iir_df2t")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fptr = ctypes.POINTER(ctypes.c_float)
-    lib.iir_df2t_chunk_pass.argtypes = [
-        i32, ptr, ptr, ptr, ptr, ptr, ptr, fptr, fptr, i32, i64, i32, i32, ptr,
-    ]
-    lib.iir_df2t_chunk_pass.restype = i32
-    lib.iir_df2t_carry_pass.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
-    lib.iir_df2t_carry_pass.restype = i32
-    return lib
+_F32P = ctypes.POINTER(ctypes.c_float)
+_library = library("iir_df2t", {
+    "iir_df2t_chunk_pass": (I32, PTR, PTR, PTR, PTR, PTR, PTR, _F32P, _F32P, I32, I64, I32, I32,
+                            PTR),
+    "iir_df2t_carry_pass": (PTR, PTR, PTR, PTR, I32, I32, I32, PTR),
+})
 
 
 def lfilter_cuda(b, a, x: torch.Tensor, zi: Optional[torch.Tensor] = None):
@@ -250,23 +243,19 @@ def lfilter_cuda(b, a, x: torch.Tensor, zi: Optional[torch.Tensor] = None):
     a_c = (ctypes.c_float * (order + 1))(*an.tolist())
     ptrs = [v.data_ptr() for v in (x, y, s_in, u, zf, coef)]
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        cuda_stream = stream(x)
         passes = (
             ("pass 1", lambda: lib.iir_df2t_chunk_pass(
-                0, *ptrs, b_c, a_c, c, t, chunk, order, stream)),
+                0, *ptrs, b_c, a_c, c, t, chunk, order, cuda_stream)),
             ("pass 2", lambda: lib.iir_df2t_carry_pass(
                 P.data_ptr(), state.data_ptr(), u.data_ptr(), s_in.data_ptr(),
-                c, nc, order, stream)),
+                c, nc, order, cuda_stream)),
             ("pass 3", lambda: lib.iir_df2t_chunk_pass(
-                1, *ptrs, b_c, a_c, c, t, chunk, order, stream)),
+                1, *ptrs, b_c, a_c, c, t, chunk, order, cuda_stream)),
         )
         for name, launch in passes:
-            err = launch()
-            if err != 0:
-                raise RuntimeError(
-                    f"iir_df2t {name} launch failed: cudaError_t {err} "
-                    f"(order {order}, {c} rows x {t} samples, chunk {chunk})"
-                )
+            launched(launch(), f"iir_df2t {name}", "order {}, {} rows x {} samples, chunk {}",
+                     order, c, t, chunk)
     LAUNCHES += 1
     if zi is not None:
         return y, zf.reshape(lead + (order,))

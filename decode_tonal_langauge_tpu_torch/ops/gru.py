@@ -29,9 +29,9 @@ bias and input gradients are then time-batched matmuls over the stacks.
 The loops are ``torch.library`` ops over a whole sequence,
 ``tonal::gru_scan`` and ``tonal::gru_scan_backward``, on tensors with an
 explicit leading seed axis S: ``xg`` (S, B, T, 3H), ``wt = W_hh^T``
-(S, H, 3H), ``bh`` (S, 3H), time-major stacks (T, S, B, H). Each has a
-vmap rule that folds vmap's dimension into S, as ``ops/lstm.py``'s do.
-Inside, each time step is one op:
+(S, H, 3H), ``bh`` (S, 3H), time-major stacks (T, S, B, H), with the vmap
+rule, device guard and Meta implementation of ``ops/recurrence.py``, as
+``ops/lstm.py``'s. Inside, each time step is one op:
 
 - ``tonal::gru_step(h, wt, xg_t, bh, h_out, rzn_t, keep)``: writes ``h_t``
   and (with ``keep``) r, z, n, hn into the stacks;
@@ -53,15 +53,12 @@ count the kernels of forward and reverse steps, one a time step each;
 
 from __future__ import annotations
 
-import ctypes
-from functools import lru_cache
-from typing import Tuple
-
 import torch
 from torch import Tensor, nn
 
+from .._build import I32, I64, PTR, launched, library, stream
 from ..runtime.profiling import span
-from .lstm import _DTYPES, _fold, _on_device, _split, _stream
+from .recurrence import kernel_dtype, scan_op, step_op
 
 FORWARD_LAUNCHES = 0  # forward step kernels launched, one a time step
 REVERSE_LAUNCHES = 0  # reverse step kernels launched, one a time step but the last
@@ -116,46 +113,17 @@ def _step_backward_plain(dgh_t, wt, d_h, h_before, rzn, carry, dgx, dgh):
 
 # -- the kernels' wrappers --------------------------------------------------
 
-@lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    """``csrc/gru_step.cu`` built, loaded and its entry points typed."""
-    from .. import _build
-
-    lib = _build.load("gru_step")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gru_step_forward.argtypes = [
-        i32, ptr, ptr, i32, i32, i32, ptr, i64, i64, ptr, ptr, ptr, i64, ptr,
-    ]
-    lib.gru_step_forward.restype = i32
-    lib.gru_step_reverse.argtypes = [
-        i32, i32, ptr, ptr, i32, i32, i32, ptr, i64, i64, ptr, ptr, i64, ptr, ptr, ptr, ptr,
-    ]
-    lib.gru_step_reverse.restype = i32
-    lib.gru_step_tile.argtypes = [i32, i32, i32, i32, i32]
-    lib.gru_step_tile.restype = i32
-    return lib
-
-
-def _kernel_dtype(*ts: Tensor) -> int:
-    """The kernel's dtype code; raises on what the kernel does not take."""
-    dtype = ts[0].dtype
-    if dtype not in _DTYPES or any(t.dtype != dtype for t in ts):
-        raise TypeError(f"gru step kernel: float32, float64 or bfloat16 operands of one "
-                        f"dtype, got {[t.dtype for t in ts]}")
-    if any(not t.is_cuda or t.device != ts[0].device for t in ts):
-        raise ValueError("gru step kernel: every operand on one CUDA device")
-    return _DTYPES[dtype]
-
-
-def _launched(err: int, what: str, shape) -> None:
-    if err != 0:
-        raise RuntimeError(f"gru_step {what} launch failed: cudaError_t {err} "
-                           f"(S, B, H = {tuple(shape)})")
+_library = library("gru_step", {
+    "gru_step_forward": (I32, PTR, PTR, I32, I32, I32, PTR, I64, I64, PTR, PTR, PTR, I64, PTR),
+    "gru_step_reverse": (I32, I32, PTR, PTR, I32, I32, I32, PTR, I64, I64, PTR, PTR, I64, PTR,
+                         PTR, PTR, PTR),
+    "gru_step_tile": (I32,) * 5,
+})
 
 
 def _step_cuda(h, wt, xg_t, bh, h_out, rzn_t, keep):
     global FORWARD_LAUNCHES
-    code = _kernel_dtype(h, wt, xg_t, bh, h_out, rzn_t)
+    code = kernel_dtype("gru step kernel", h, wt, xg_t, bh, h_out, rzn_t)
     s, b, hid = h.shape
     if not (h.is_contiguous() and wt.is_contiguous() and bh.is_contiguous()
             and h_out.is_contiguous() and wt.shape == (s, hid, 3 * hid)
@@ -168,8 +136,8 @@ def _step_cuda(h, wt, xg_t, bh, h_out, rzn_t, keep):
     err = _library().gru_step_forward(
         code, h.data_ptr(), wt.data_ptr(), s, b, hid,
         xg_t.data_ptr(), xg_t.stride(0), xg_t.stride(1), bh.data_ptr(), h_out.data_ptr(),
-        rzn_t.data_ptr() if keep else None, rzn_t.stride(0) if keep else 0, _stream(h))
-    _launched(err, "forward", h.shape)
+        rzn_t.data_ptr() if keep else None, rzn_t.stride(0) if keep else 0, stream(h))
+    launched(err, "gru_step forward", "S, B, H = {}", (s, b, hid))
     FORWARD_LAUNCHES += 1
 
 
@@ -191,28 +159,28 @@ def _reverse(code, mode, dgh_t, wt, d_h, h_before, rzn, carry, dgx, dgh):
         code, mode, dgh_t.data_ptr() if mode == 1 else None,
         wt.data_ptr() if mode == 1 else None, s, b, hid, d_h.data_ptr(), d_h.stride(0),
         d_h.stride(1), h_before.data_ptr(), rzn.data_ptr(), rzn.stride(0), carry.data_ptr(),
-        dgx.data_ptr(), dgh.data_ptr(), _stream(h_before))
+        dgx.data_ptr(), dgh.data_ptr(), stream(h_before))
 
 
 def _delta_init_cuda(d_h, h_before, rzn, carry, dgx, dgh):
     global DELTA_LAUNCHES
-    code = _kernel_dtype(d_h, h_before, rzn, carry, dgx, dgh)
+    code = kernel_dtype("gru step kernel", d_h, h_before, rzn, carry, dgx, dgh)
     _reverse_checks(d_h, h_before, rzn, carry, dgx, dgh)
-    _launched(_reverse(code, 2, None, None, d_h, h_before, rzn, carry, dgx, dgh),
-              "first delta", h_before.shape)
+    launched(_reverse(code, 2, None, None, d_h, h_before, rzn, carry, dgx, dgh),
+             "gru_step first delta", "S, B, H = {}", (*h_before.shape,))
     DELTA_LAUNCHES += 1
 
 
 def _step_backward_cuda(dgh_t, wt, d_h, h_before, rzn, carry, dgx, dgh):
     global REVERSE_LAUNCHES
-    code = _kernel_dtype(dgh_t, wt, d_h, h_before, rzn, carry, dgx, dgh)
+    code = kernel_dtype("gru step kernel", dgh_t, wt, d_h, h_before, rzn, carry, dgx, dgh)
     s, b, hid = h_before.shape
     if not (dgh_t.is_contiguous() and dgh_t.shape == (s, b, 3 * hid) and wt.is_contiguous()
             and wt.shape == (s, hid, 3 * hid)):
         raise ValueError("gru_step_backward: dgh_t (S, B, 3H) and wt (S, H, 3H) contiguous")
     _reverse_checks(d_h, h_before, rzn, carry, dgx, dgh)
-    _launched(_reverse(code, 1, dgh_t, wt, d_h, h_before, rzn, carry, dgx, dgh),
-              "reverse", (s, b, hid))
+    launched(_reverse(code, 1, dgh_t, wt, d_h, h_before, rzn, carry, dgx, dgh),
+             "gru_step reverse", "S, B, H = {}", (s, b, hid))
     REVERSE_LAUNCHES += 1
 
 
@@ -224,18 +192,13 @@ def step_tile(seeds: int, rows: int, hid: int, reverse: bool = False,
     return _library().gru_step_tile(seeds, rows, hid, size, int(reverse))
 
 
-_LIB = torch.library.Library("tonal", "FRAGMENT")
-_LIB.define("gru_step(Tensor h, Tensor wt, Tensor xg_t, Tensor bh, Tensor(a!) h_out, "
-            "Tensor(b!) rzn_t, bool keep) -> ()")
-_LIB.define("gru_step_backward(Tensor dgh_t, Tensor wt, Tensor d_h, Tensor h_before, "
-            "Tensor rzn, Tensor(a!) carry, Tensor(b!) dgx, Tensor(c!) dgh) -> ()")
-_LIB.define("gru_delta_init(Tensor d_h, Tensor h_before, Tensor rzn, Tensor(a!) carry, "
-            "Tensor(b!) dgx, Tensor(c!) dgh) -> ()")
-for _name, _plain, _cuda in (("gru_step", _step_plain, _step_cuda),
-                             ("gru_step_backward", _step_backward_plain, _step_backward_cuda),
-                             ("gru_delta_init", _delta_init_plain, _delta_init_cuda)):
-    _LIB.impl(_name, _plain, "CPU")
-    _LIB.impl(_name, _cuda, "CUDA")
+step_op("gru_step(Tensor h, Tensor wt, Tensor xg_t, Tensor bh, Tensor(a!) h_out, "
+        "Tensor(b!) rzn_t, bool keep) -> ()", _step_plain, _step_cuda)
+step_op("gru_step_backward(Tensor dgh_t, Tensor wt, Tensor d_h, Tensor h_before, "
+        "Tensor rzn, Tensor(a!) carry, Tensor(b!) dgx, Tensor(c!) dgh) -> ()",
+        _step_backward_plain, _step_backward_cuda)
+step_op("gru_delta_init(Tensor d_h, Tensor h_before, Tensor rzn, Tensor(a!) carry, "
+        "Tensor(b!) dgx, Tensor(c!) dgh) -> ()", _delta_init_plain, _delta_init_cuda)
 
 
 # -- the sequence loops -----------------------------------------------------
@@ -291,69 +254,17 @@ def gru_scan_backward_plain(d_hs, wt, hs, rzn):
     return _scan_backward(d_hs, wt, hs, rzn, _step_backward_plain, _delta_init_plain)
 
 
-def _gru_scan_impl(xg, wt, bh, keep):
-    with _on_device(xg):
-        return _scan(xg, wt, bh, keep, torch.ops.tonal.gru_step)
-
-
-def _gru_scan_backward_impl(d_hs, wt, hs, rzn):
-    with _on_device(hs):
-        return _scan_backward(d_hs, wt, hs, rzn, torch.ops.tonal.gru_step_backward,
-                              torch.ops.tonal.gru_delta_init)
-
-
-def _gru_scan_meta(xg, wt, bh, keep):
-    s, b, n_t, g3 = xg.shape
-    hid = g3 // 3
-    return xg.new_empty((n_t, s, b, hid)), xg.new_empty((4, n_t, s, b, hid) if keep else (0,))
-
-
-def _gru_scan_backward_meta(d_hs, wt, hs, rzn):
-    n_t, s, b, hid = hs.shape
-    return hs.new_empty((n_t, s, b, 3 * hid)), hs.new_empty((n_t, s, b, 3 * hid))
-
-
-_LIB.define("gru_scan(Tensor xg, Tensor wt, Tensor bh, bool keep) -> (Tensor, Tensor)")
-_LIB.define("gru_scan_backward(Tensor d_hs, Tensor wt, Tensor hs, Tensor rzn) "
-            "-> (Tensor, Tensor)")
-for _name, _impl, _meta in (("gru_scan", _gru_scan_impl, _gru_scan_meta),
-                            ("gru_scan_backward", _gru_scan_backward_impl,
-                             _gru_scan_backward_meta)):
-    _LIB.impl(_name, _impl, "CPU")
-    _LIB.impl(_name, _impl, "CUDA")
-    _LIB.impl(_name, _meta, "Meta")
-
-
-def gru_scan(xg: Tensor, wt: Tensor, bh: Tensor, keep: bool) -> Tuple[Tensor, Tensor]:
-    """``tonal::gru_scan``: the forward recurrence (:func:`_scan`), one
-    ``tonal::gru_step`` a time step."""
-    return torch.ops.tonal.gru_scan(xg, wt, bh, keep)
-
-
-def gru_scan_backward(d_hs: Tensor, wt: Tensor, hs: Tensor, rzn: Tensor) -> Tuple[Tensor, Tensor]:
-    """``tonal::gru_scan_backward``: the reverse loop (:func:`_scan_backward`),
-    one ``tonal::gru_step_backward`` a time step after one
-    ``tonal::gru_delta_init``."""
-    return torch.ops.tonal.gru_scan_backward(d_hs, wt, hs, rzn)
-
-
-@torch.library.register_vmap("tonal::gru_scan", lib=_LIB)
-def _gru_scan_vmap(info, in_dims, xg, wt, bh, keep):
-    n = info.batch_size
-    xd, wd, bd, _ = in_dims
-    hs, rzn = gru_scan(_fold(xg, xd, 0, n), _fold(wt, wd, 0, n), _fold(bh, bd, 0, n), keep)
-    if keep:
-        return (_split(hs, 1, n), _split(rzn, 2, n)), (1, 2)
-    return (_split(hs, 1, n), rzn), (1, None)
-
-
-@torch.library.register_vmap("tonal::gru_scan_backward", lib=_LIB)
-def _gru_scan_backward_vmap(info, in_dims, d_hs, wt, hs, rzn):
-    n = info.batch_size
-    dd, wd, hd, rd = in_dims
-    dgx, dgh = gru_scan_backward(_fold(d_hs, dd, 1, n), _fold(wt, wd, 0, n),
-                                 _fold(hs, hd, 1, n), _fold(rzn, rd, 2, n))
-    return (_split(dgx, 1, n), _split(dgh, 1, n)), (1, 1)
+# ``tonal::gru_scan``: the forward recurrence (:func:`_scan`), one
+# ``tonal::gru_step`` a time step; ``tonal::gru_scan_backward``: the reverse
+# loop (:func:`_scan_backward`), one ``tonal::gru_step_backward`` a time
+# step after one ``tonal::gru_delta_init``. The seed axis: xg, wt, bh at 0,
+# hs at 1, r, z, n, hn at 2; d_hs and hs at 1, wt at 0, r, z, n, hn at 2,
+# both deltas at 1.
+gru_scan = scan_op("gru_scan(Tensor xg, Tensor wt, Tensor bh, bool keep) -> (Tensor, Tensor)",
+                   _scan, ("gru_step",), (0, 0, 0), (1, 2))
+gru_scan_backward = scan_op(
+    "gru_scan_backward(Tensor d_hs, Tensor wt, Tensor hs, Tensor rzn) -> (Tensor, Tensor)",
+    _scan_backward, ("gru_step_backward", "gru_delta_init"), (1, 0, 1, 2), (1, 1))
 
 
 # -- one layer, every direction ---------------------------------------------

@@ -17,10 +17,9 @@ take (serving), the forward keeps nothing but ``h``.
 The two loops are ``torch.library`` ops over a whole sequence,
 ``tonal::lstm_scan`` and ``tonal::lstm_scan_backward``, on tensors with an
 explicit leading seed axis S: ``xg`` (S, B, T, 4H), ``wh`` (S, H, 4H),
-time-major stacks (T, S, B, H). Each has a vmap rule that folds vmap's
-dimension into S, so a seed-batched fit (``training/seed_stack.py``)
-crosses vmap's batching layer once a sequence, not once an op a step.
-Inside, each time step is one op:
+time-major stacks (T, S, B, H), with the vmap rule, device guard and
+Meta implementation of ``ops/recurrence.py`` (vmap's dimension folded
+into S). Inside, each time step is one op:
 
 - ``tonal::lstm_step(h, wh, xg_t, c, h_out, c_out, ifgo_t, keep)``:
   ``h`` (S, B, H), ``wh`` (S, H, 4H); writes ``h_t``, ``c_t`` and (with
@@ -34,7 +33,7 @@ Inside, each time step is one op:
   first delta, step T-1's, with no product.
 
 On a CUDA tensor a step op launches the hand-written sm_90a kernel of
-``csrc/lstm_step.cu`` (built by ``_build.py``, bound with ``ctypes``) or
+``csrc/lstm_step.cu`` (built and bound with ``ctypes`` by ``_build.py``) or
 raises; on a CPU tensor it runs the plain version (:func:`_step_plain`,
 :func:`_step_backward_plain`, :func:`_delta_init_plain`), whose
 arithmetic is the kernel's, in its order. :func:`lstm_scan_plain` and
@@ -57,20 +56,18 @@ train step opens.
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
-from functools import lru_cache
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 from torch import Tensor, nn
 
+from .._build import I32, I64, PTR, launched, library, stream
 from ..runtime.profiling import span
+from .recurrence import kernel_dtype, scan_op, step_op
 
 FORWARD_LAUNCHES = 0  # forward step kernels launched, one a time step
 REVERSE_LAUNCHES = 0  # reverse step kernels launched, one a time step
 DELTA_LAUNCHES = 0  # first-delta kernels launched, one a reverse loop
-_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 
 # -- the plain versions: the ops' CPU implementation ------------------------
@@ -126,50 +123,18 @@ def _step_backward_plain(da_t, wh_t, d_h, c, c_before, ifgo, dc_next, out, epilo
 
 # -- the kernels' wrappers --------------------------------------------------
 
-@lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    """``csrc/lstm_step.cu`` built, loaded and its entry points typed."""
-    from .. import _build
-
-    lib = _build.load("lstm_step")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.lstm_step_forward.argtypes = [
-        i32, ptr, ptr, i32, i32, i32, ptr, i64, i64, ptr, ptr, ptr, ptr, i64, ptr,
-    ]
-    lib.lstm_step_forward.restype = i32
-    lib.lstm_step_reverse.argtypes = [
-        i32, i32, ptr, ptr, i32, i32, i32, ptr, i64, i64, ptr, ptr, ptr, i64, ptr, ptr, ptr,
-    ]
-    lib.lstm_step_reverse.restype = i32
-    lib.lstm_step_tile.argtypes = [i32, i32, i32, i32, i32]
-    lib.lstm_step_tile.restype = i32
-    return lib
-
-
-def _kernel_dtype(*ts: Tensor) -> int:
-    """The kernel's dtype code; raises on what the kernel does not take."""
-    dtype = ts[0].dtype
-    if dtype not in _DTYPES or any(t.dtype != dtype for t in ts):
-        raise TypeError(f"lstm step kernel: float32, float64 or bfloat16 operands of one "
-                        f"dtype, got {[t.dtype for t in ts]}")
-    if any(not t.is_cuda or t.device != ts[0].device for t in ts):
-        raise ValueError("lstm step kernel: every operand on one CUDA device")
-    return _DTYPES[dtype]
-
-
-def _stream(t: Tensor) -> int:
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
-
-
-def _launched(err: int, what: str, shape) -> None:
-    if err != 0:
-        raise RuntimeError(f"lstm_step {what} launch failed: cudaError_t {err} "
-                           f"(S, B, H = {tuple(shape)})")
+_library = library("lstm_step", {
+    "lstm_step_forward": (I32, PTR, PTR, I32, I32, I32, PTR, I64, I64, PTR, PTR, PTR, PTR, I64,
+                          PTR),
+    "lstm_step_reverse": (I32, I32, PTR, PTR, I32, I32, I32, PTR, I64, I64, PTR, PTR, PTR, I64,
+                          PTR, PTR, PTR),
+    "lstm_step_tile": (I32,) * 5,
+})
 
 
 def _step_cuda(h, wh, xg_t, c, h_out, c_out, ifgo_t, keep):
     global FORWARD_LAUNCHES
-    code = _kernel_dtype(h, wh, xg_t, c, h_out, c_out, ifgo_t)
+    code = kernel_dtype("lstm step kernel", h, wh, xg_t, c, h_out, c_out, ifgo_t)
     s, b, hid = h.shape
     if not (h.is_contiguous() and wh.is_contiguous() and c.is_contiguous()
             and h_out.is_contiguous() and c_out.is_contiguous()
@@ -183,8 +148,8 @@ def _step_cuda(h, wh, xg_t, c, h_out, c_out, ifgo_t, keep):
         code, h.data_ptr(), wh.data_ptr(), s, b, hid,
         xg_t.data_ptr(), xg_t.stride(0), xg_t.stride(1), c.data_ptr(),
         h_out.data_ptr(), c_out.data_ptr(),
-        ifgo_t.data_ptr() if keep else None, ifgo_t.stride(0) if keep else 0, _stream(h))
-    _launched(err, "forward", h.shape)
+        ifgo_t.data_ptr() if keep else None, ifgo_t.stride(0) if keep else 0, stream(h))
+    launched(err, "lstm_step forward", "S, B, H = {}", (s, b, hid))
     FORWARD_LAUNCHES += 1
 
 
@@ -201,20 +166,20 @@ def _reverse_checks(d_h, c, c_before, ifgo, dc_next, out, da_shape) -> None:
 
 def _delta_init_cuda(d_h, c, c_before, ifgo, dc_next, out):
     global DELTA_LAUNCHES
-    code = _kernel_dtype(d_h, c, c_before, ifgo, dc_next, out)
+    code = kernel_dtype("lstm step kernel", d_h, c, c_before, ifgo, dc_next, out)
     s, b, hid = c.shape
     _reverse_checks(d_h, c, c_before, ifgo, dc_next, out, (s, b, 4 * hid))
     err = _library().lstm_step_reverse(
         code, 2, None, None, s, b, hid, d_h.data_ptr(), d_h.stride(0), d_h.stride(1),
         c.data_ptr(), c_before.data_ptr(), ifgo.data_ptr(), ifgo.stride(0),
-        dc_next.data_ptr(), out.data_ptr(), _stream(c))
-    _launched(err, "first delta", c.shape)
+        dc_next.data_ptr(), out.data_ptr(), stream(c))
+    launched(err, "lstm_step first delta", "S, B, H = {}", (s, b, hid))
     DELTA_LAUNCHES += 1
 
 
 def _step_backward_cuda(da_t, wh_t, d_h, c, c_before, ifgo, dc_next, out, epilogue):
     global REVERSE_LAUNCHES
-    code = _kernel_dtype(da_t, wh_t, d_h, c, c_before, ifgo, dc_next, out)
+    code = kernel_dtype("lstm step kernel", da_t, wh_t, d_h, c, c_before, ifgo, dc_next, out)
     s, b, g4 = da_t.shape
     hid = g4 // 4
     if not (da_t.is_contiguous() and wh_t.shape == (s, g4, hid)
@@ -231,8 +196,8 @@ def _step_backward_cuda(da_t, wh_t, d_h, c, c_before, ifgo, dc_next, out, epilog
         args = (None, 0, 0, None, None, None, 0, None)
     err = _library().lstm_step_reverse(
         code, 1 if epilogue else 0, da_t.data_ptr(), wh_t.data_ptr(), s, b, hid, *args,
-        out.data_ptr(), _stream(da_t))
-    _launched(err, "reverse", (s, b, hid))
+        out.data_ptr(), stream(da_t))
+    launched(err, "lstm_step reverse", "S, B, H = {}", (s, b, hid))
     REVERSE_LAUNCHES += 1
 
 
@@ -247,19 +212,13 @@ def step_tile(seeds: int, rows: int, hid: int, reverse: bool = False,
     return _library().lstm_step_tile(seeds, rows, hid, size, int(reverse))
 
 
-_LIB = torch.library.Library("tonal", "FRAGMENT")
-_LIB.define("lstm_step(Tensor h, Tensor wh, Tensor xg_t, Tensor c, Tensor(a!) h_out, "
-            "Tensor(b!) c_out, Tensor(c!) ifgo_t, bool keep) -> ()")
-_LIB.define("lstm_step_backward(Tensor da_t, Tensor wh_t, Tensor d_h, Tensor c, "
-            "Tensor c_before, Tensor ifgo, Tensor(a!) dc_next, Tensor(b!) out, "
-            "bool epilogue) -> ()")
-_LIB.define("lstm_delta_init(Tensor d_h, Tensor c, Tensor c_before, Tensor ifgo, "
-            "Tensor(a!) dc_next, Tensor(b!) out) -> ()")
-for _name, _plain, _cuda in (("lstm_step", _step_plain, _step_cuda),
-                             ("lstm_step_backward", _step_backward_plain, _step_backward_cuda),
-                             ("lstm_delta_init", _delta_init_plain, _delta_init_cuda)):
-    _LIB.impl(_name, _plain, "CPU")
-    _LIB.impl(_name, _cuda, "CUDA")
+step_op("lstm_step(Tensor h, Tensor wh, Tensor xg_t, Tensor c, Tensor(a!) h_out, "
+        "Tensor(b!) c_out, Tensor(c!) ifgo_t, bool keep) -> ()", _step_plain, _step_cuda)
+step_op("lstm_step_backward(Tensor da_t, Tensor wh_t, Tensor d_h, Tensor c, "
+        "Tensor c_before, Tensor ifgo, Tensor(a!) dc_next, Tensor(b!) out, "
+        "bool epilogue) -> ()", _step_backward_plain, _step_backward_cuda)
+step_op("lstm_delta_init(Tensor d_h, Tensor c, Tensor c_before, Tensor ifgo, "
+        "Tensor(a!) dc_next, Tensor(b!) out) -> ()", _delta_init_plain, _delta_init_cuda)
 
 
 # -- the sequence loops -----------------------------------------------------
@@ -317,99 +276,27 @@ def lstm_scan_backward_plain(d_hs, wh, c0, cs, ifgo):
     return _scan_backward(d_hs, wh, c0, cs, ifgo, _step_backward_plain, _delta_init_plain)
 
 
-def _on_device(t: Tensor):
-    """The kernels launch on the current device: make it ``t``'s."""
-    return torch.cuda.device(t.device) if t.is_cuda else contextlib.nullcontext()
+# ``tonal::lstm_scan``: the forward recurrence (:func:`_scan`), one
+# ``tonal::lstm_step`` a time step; ``tonal::lstm_scan_backward``: the
+# reverse loop (:func:`_scan_backward`), one ``tonal::lstm_step_backward`` a
+# time step after one ``tonal::lstm_delta_init``. The seed axis: xg, h0,
+# c0, wh at 0, hs and cs at 1, the gates at 2; d_hs and cs at 1, wh and c0
+# at 0, the gates at 2, the deltas at 1, dh0 and dc0 at 0.
+lstm_scan = scan_op("lstm_scan(Tensor xg, Tensor h0, Tensor c0, Tensor wh, bool keep) "
+                    "-> (Tensor, Tensor, Tensor)", _scan, ("lstm_step",),
+                    (0, 0, 0, 0), (1, 1, 2))
+lstm_scan_backward = scan_op(
+    "lstm_scan_backward(Tensor d_hs, Tensor wh, Tensor c0, Tensor cs, Tensor ifgo) "
+    "-> (Tensor, Tensor, Tensor)", _scan_backward, ("lstm_step_backward", "lstm_delta_init"),
+    (1, 0, 0, 1, 2), (1, 0, 0))
 
 
-def _lstm_scan_impl(xg, h0, c0, wh, keep):
-    with _on_device(xg):
-        return _scan(xg, h0, c0, wh, keep, torch.ops.tonal.lstm_step)
-
-
-def _lstm_scan_backward_impl(d_hs, wh, c0, cs, ifgo):
-    with _on_device(cs):
-        return _scan_backward(d_hs, wh, c0, cs, ifgo, torch.ops.tonal.lstm_step_backward,
-                              torch.ops.tonal.lstm_delta_init)
-
-
-def _lstm_scan_meta(xg, h0, c0, wh, keep):  # shapes alone (the seed stack's meta forward)
-    s, b, n_t, g4 = xg.shape
-    hid = g4 // 4
-    return (xg.new_empty((n_t, s, b, hid)), xg.new_empty((n_t if keep else 2, s, b, hid)),
-            xg.new_empty((4, n_t, s, b, hid) if keep else (0,)))
-
-
-def _lstm_scan_backward_meta(d_hs, wh, c0, cs, ifgo):
-    n_t, s, b, hid = cs.shape
-    return cs.new_empty((n_t, s, b, 4 * hid)), cs.new_empty((s, b, hid)), cs.new_empty((s, b, hid))
-
-
-# The sequence ops are defined on the plain Library (its first call costs
-# nothing; torch.library.custom_op's first call imports seconds of
-# tracing machinery), with the CPU and CUDA implementations above, a meta
-# one, and a vmap rule each (below).
-_LIB.define("lstm_scan(Tensor xg, Tensor h0, Tensor c0, Tensor wh, bool keep) "
-            "-> (Tensor, Tensor, Tensor)")
-_LIB.define("lstm_scan_backward(Tensor d_hs, Tensor wh, Tensor c0, Tensor cs, Tensor ifgo) "
-            "-> (Tensor, Tensor, Tensor)")
-for _name, _impl, _meta in (("lstm_scan", _lstm_scan_impl, _lstm_scan_meta),
-                            ("lstm_scan_backward", _lstm_scan_backward_impl,
-                             _lstm_scan_backward_meta)):
-    _LIB.impl(_name, _impl, "CPU")
-    _LIB.impl(_name, _impl, "CUDA")
-    _LIB.impl(_name, _meta, "Meta")
-
-
-def lstm_scan(xg: Tensor, h0: Tensor, c0: Tensor, wh: Tensor,
-              keep: bool) -> Tuple[Tensor, Tensor, Tensor]:
-    """``tonal::lstm_scan``: the forward recurrence (:func:`_scan`), one
-    ``tonal::lstm_step`` a time step."""
-    return torch.ops.tonal.lstm_scan(xg, h0, c0, wh, keep)
-
-
-def lstm_scan_backward(d_hs: Tensor, wh: Tensor, c0: Tensor, cs: Tensor,
-                       ifgo: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
-    """``tonal::lstm_scan_backward``: the reverse loop
-    (:func:`_scan_backward`), one ``tonal::lstm_step_backward`` a time step
-    after one ``tonal::lstm_delta_init``."""
-    return torch.ops.tonal.lstm_scan_backward(d_hs, wh, c0, cs, ifgo)
-
-
-def _fold(x: Tensor, dim: Optional[int], pos: int, size: int) -> Tensor:
-    """Move vmap's dimension ``dim`` (None: not batched, so broadcast) to
-    ``pos`` and merge it into the seed axis that follows it."""
-    if dim is None:
-        x = x.unsqueeze(pos).expand(x.shape[:pos] + (size,) + x.shape[pos:])
-    else:
-        x = x.movedim(dim, pos)
-    return x.reshape(x.shape[:pos] + (-1,) + x.shape[pos + 2:])
-
-
-def _split(x: Tensor, pos: int, size: int) -> Tensor:
-    """Undo :func:`_fold` on an output: vmap's dimension at ``pos``."""
-    return x.reshape(x.shape[:pos] + (size, -1) + x.shape[pos + 1:])
-
-
-@torch.library.register_vmap("tonal::lstm_scan", lib=_LIB)
-def _lstm_scan_vmap(info, in_dims, xg, h0, c0, wh, keep):
-    n = info.batch_size
-    xd, hd, cd, wd, _ = in_dims
-    hs, cs, ifgo = lstm_scan(_fold(xg, xd, 0, n), _fold(h0, hd, 0, n), _fold(c0, cd, 0, n),
-                             _fold(wh, wd, 0, n), keep)
-    if keep:
-        return (_split(hs, 1, n), _split(cs, 1, n), _split(ifgo, 2, n)), (1, 1, 2)
-    return (_split(hs, 1, n), _split(cs, 1, n), ifgo), (1, 1, None)
-
-
-@torch.library.register_vmap("tonal::lstm_scan_backward", lib=_LIB)
-def _lstm_scan_backward_vmap(info, in_dims, d_hs, wh, c0, cs, ifgo):
-    n = info.batch_size
-    dd, wd, cd, sd, gd = in_dims
-    das, dh0, dc0 = lstm_scan_backward(_fold(d_hs, dd, 1, n), _fold(wh, wd, 0, n),
-                                       _fold(c0, cd, 0, n), _fold(cs, sd, 1, n),
-                                       _fold(ifgo, gd, 2, n))
-    return (_split(das, 1, n), _split(dh0, 0, n), _split(dc0, 0, n)), (1, 0, 0)
+def _forward(x, h0, c0, wi, wh, b, keep):
+    """The input projections of every time step as one matmul, then
+    :func:`lstm_scan` on a seed axis of one."""
+    with span("lstm.forward"):
+        xg = torch.einsum("bti,ih->bth", x, wi) + b
+        return lstm_scan(xg[None], h0[None], c0[None], wh[None], keep)
 
 
 class LSTMSequence(torch.autograd.Function):
@@ -425,9 +312,7 @@ class LSTMSequence(torch.autograd.Function):
 
     @staticmethod
     def forward(x, h0, c0, wi, wh, b):
-        with span("lstm.forward"):
-            xg = torch.einsum("bti,ih->bth", x, wi) + b  # all timesteps at once
-            hs, cs, ifgo = lstm_scan(xg[None], h0[None], c0[None], wh[None], True)
+        hs, cs, ifgo = _forward(x, h0, c0, wi, wh, b, True)
         return hs[:, 0].transpose(0, 1), cs[:, 0], ifgo[:, :, 0]
 
     @staticmethod
@@ -475,10 +360,7 @@ def lstm_sequence(
     inputs = (x, h0, c0, wi, wh, b)
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         return LSTMSequence.apply(*inputs)[0]
-    with span("lstm.forward"):
-        xg = torch.einsum("bti,ih->bth", x, wi) + b
-        hs = lstm_scan(xg[None], h0[None], c0[None], wh[None], False)[0]
-        return hs[:, 0].transpose(0, 1)
+    return _forward(x, h0, c0, wi, wh, b, False)[0][:, 0].transpose(0, 1)
 
 
 class TimeBatchedLSTM(nn.Module):

@@ -6,6 +6,7 @@ is none they raise instead of quietly running on the CPU. The CPU runs
 only when a caller asks for it (``device="cpu"``), as the tests do. Under
 a process group (``parallel/distributed.py``) the card is the rank's own,
 ``cuda:{LOCAL_RANK}``, which ``initialize`` made the current device.
+:func:`scaler_on` places a classifier's feature scaler on a device.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import contextlib
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -34,6 +36,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is unavailable")
     return device
+
+
+def scaler_on(scaler, device: torch.device):
+    """A classifier's feature scaler ``(mu, sd)`` as float32 tensors on
+    ``device``; None stays None."""
+    if scaler is None:
+        return None
+    return tuple(torch.as_tensor(np.array(v, dtype=np.float32), device=device) for v in scaler)
 
 
 @contextlib.contextmanager

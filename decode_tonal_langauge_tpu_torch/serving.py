@@ -60,7 +60,7 @@ from .ops.framing import extract_epochs
 from .parallel.distributed import initialize, process_index
 from .parallel.mesh import DataParallelLayout, fetch_global, mesh_from_config
 from .runtime.checkpoint import load_checkpoint, save_checkpoint  # noqa: F401
-from .runtime.device import DeviceLike, exact_f32, resolve_device
+from .runtime.device import DeviceLike, exact_f32, resolve_device, scaler_on
 from .runtime.profiling import recording, span
 
 _DISCRIMINATIVE = ["tone_discriminative", "syllable_discriminative"]
@@ -94,19 +94,11 @@ class TonalDecoder:
         self.tone_model = put(tone_model)
         self.syllable_model = put(syllable_model)
         self.synthesis_model = put(synthesis_model)
-        self.tone_scaler = self._scaler(tone_scaler)
-        self.syllable_scaler = self._scaler(syllable_scaler)
+        self.tone_scaler = scaler_on(tone_scaler, self.device)
+        self.syllable_scaler = scaler_on(syllable_scaler, self.device)
         table, _ = tone_dynamics_table(tone_dynamic_mapping)
         self.dynamics_table = torch.as_tensor(
             table, dtype=torch.float32, device=self.device
-        )
-
-    def _scaler(self, scaler):
-        if scaler is None:
-            return None
-        return tuple(
-            torch.as_tensor(np.array(v, dtype=np.float32), device=self.device)
-            for v in scaler
         )
 
     @torch.no_grad()

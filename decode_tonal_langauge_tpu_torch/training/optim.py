@@ -56,6 +56,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .._build import I32, PTR, launched, library, stream
 from ..runtime.profiling import span
 
 
@@ -166,15 +167,18 @@ def kernel_pair(params, grads, mu, nu) -> int:
     return _PAIRS[pd, md]
 
 
+_bound = library("nadam_step", {
+    "nadam_step": (I32, I32, ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_double),
+                   PTR),
+    "nadam_step_limits": (ctypes.POINTER(ctypes.c_int),) * 3,
+})
+
+
 @lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    """``csrc/nadam_step.cu`` built, loaded and its entry point typed."""
-    from .. import _build
-
-    lib = _build.load("nadam_step")
-    lib.nadam_step.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
-                               ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
-    lib.nadam_step.restype = ctypes.c_int
+    """``csrc/nadam_step.cu``, its compile-time limits checked against
+    this module's."""
+    lib = _bound()
     limits = [ctypes.c_int() for _ in range(3)]
     lib.nadam_step_limits(*map(ctypes.byref, limits))
     if tuple(x.value for x in limits) != (MAX_TENSORS, MAX_STRIDED, MAX_DIMS):
@@ -220,13 +224,11 @@ def nadam_cuda(params, grads, mu, nu, decay, h: Hyper) -> None:
     groups.append(rows)
     lib = _library()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
+        cuda_stream = stream(params[0])
         for rows in filter(None, groups):
             table = (ctypes.c_longlong * (len(rows) * len(rows[0])))(*(x for r in rows for x in r))
-            err = lib.nadam_step(pair, len(rows), table, scalars, stream)
-            if err != 0:
-                raise RuntimeError(f"nadam_step launch failed: cudaError_t {err} "
-                                   f"({len(rows)} tensors)")
+            err = lib.nadam_step(pair, len(rows), table, scalars, cuda_stream)
+            launched(err, "nadam_step", "{} tensors", len(rows))
             LAUNCHES += 1
 
 

@@ -58,11 +58,12 @@ from torch.func import vmap
 from ..data.utils import tone_dynamics_table
 from ..models.base import init_params
 from ..parallel.mesh import DataParallelLayout
-from ..runtime.device import DeviceLike, exact_f32, resolve_device
+from ..runtime.device import DeviceLike, exact_f32, resolve_device, scaler_on
 from ..runtime.profiling import span
 from .optim import NAdam, SeedNAdam
 from .seed_stack import SeedStack
-from .trainer import accept_jax_only, restore_state, save_state, seeded_generators
+from .trainer import (accept_jax_only, padded_rows, restore_state, save_state,
+                      seeded_generators)
 
 _DB = 10.0 / math.log(10.0)
 
@@ -108,20 +109,6 @@ def _l1_loss(out: torch.Tensor, targets: torch.Tensor, w: torch.Tensor,
     mel axis; ``total`` is the (global) batch's ``sum(w)``."""
     l1 = (out - targets).abs().mean(dim=1)
     return (l1 * w).sum() / total.clamp_min(1.0)
-
-
-def _padded_weights(n: int, batch_size: int) -> np.ndarray:
-    """Per-row weights of ``n`` rows padded to whole batches: 1, then 0."""
-    n_pad = max(1, -(-n // batch_size)) * batch_size
-    return np.concatenate([np.ones(n, np.float32), np.zeros(n_pad - n, np.float32)])
-
-
-def _pad_rows(t: torch.Tensor, n_pad: int) -> torch.Tensor:
-    """Pad to ``n_pad`` rows by repeating row 0."""
-    pad = n_pad - t.shape[0]
-    if not pad:
-        return t
-    return torch.cat([t, t[:1].expand((pad,) + t.shape[1:])])
 
 
 @dataclass
@@ -170,8 +157,8 @@ class SynthesisTrainer:
         self.tone_model = tone_model.to(self.device).eval()
         self.syllable_model = syllable_model.to(self.device).eval()
         self.tone_dynamic_mapping = tone_dynamic_mapping
-        self.tone_scaler = self._scaler(tone_scaler)
-        self.syllable_scaler = self._scaler(syllable_scaler)
+        self.tone_scaler = scaler_on(tone_scaler, self.device)
+        self.syllable_scaler = scaler_on(syllable_scaler, self.device)
         self.seed = seed
         table, _ = tone_dynamics_table(tone_dynamic_mapping)
         self.dynamics_table = torch.as_tensor(table, dtype=torch.float32, device=self.device)
@@ -186,12 +173,6 @@ class SynthesisTrainer:
         self._weights: List[torch.Tensor] = []
         self._perm_gen: Optional[torch.Generator] = None
         self._dropout_gen: Optional[torch.Generator] = None
-
-    def _scaler(self, scaler):
-        if scaler is None:
-            return None
-        return tuple(torch.as_tensor(np.array(v, dtype=np.float32), device=self.device)
-                     for v in scaler)
 
     def for_seed(self, seed: int) -> "SynthesisTrainer":
         """A new trainer of the same configuration with its own copy of
@@ -270,9 +251,10 @@ class SynthesisTrainer:
         batches and placed on the device, with the frozen classifiers'
         dynamics of the padded set."""
         x_non, x_syll, x_tone, mels = (self._tensor(a) for a in data)
-        w = _padded_weights(x_non.shape[0], batch_size)
-        x_non, x_syll, x_tone, mels = (_pad_rows(t, w.size)
-                                       for t in (x_non, x_syll, x_tone, mels))
+        rows, w = padded_rows(x_non.shape[0], batch_size)
+        if len(rows) > x_non.shape[0]:
+            idx = torch.as_tensor(rows, device=self.device)
+            x_non, x_syll, x_tone, mels = (t[idx] for t in (x_non, x_syll, x_tone, mels))
         return _DeviceData(x_non, self._predict_labels(x_tone, x_syll), mels,
                            torch.as_tensor(w, device=self.device))
 

@@ -63,7 +63,7 @@ def design(name: str):
 def measure(cuda_iir, b, a, x, zi, chunk: int, sample_clocks: bool) -> dict:
     import torch
 
-    from decode_tonal_langauge_tpu_torch._timing import kernel_ms, time_ms
+    from decode_tonal_langauge_tpu_torch.runtime.profiling import kernel_ms, time_ms
 
     cuda_iir.CHUNK = chunk
 

@@ -3,7 +3,9 @@ kernels (``csrc/lstm_step.cu``).
 
 On the CPU the ops run their plain versions: these are held against the
 loops they replaced (copied below as they were), bit for bit; vmap over
-the sequence ops against one call a seed; ``gradcheck`` in float64.
+the sequence ops against one call a seed (an unbatched weight for the
+GRU's forward scan too: the rule is ``ops/recurrence.py``'s); ``gradcheck``
+in float64.
 
 On a card (tests marked ``cuda``, skipped without one) the kernels are
 held against the plain versions run on the same card, over the shapes the
@@ -28,7 +30,8 @@ import numpy as np
 import pytest
 import torch
 
-from decode_tonal_langauge_tpu_torch.ops import lstm
+from decode_tonal_langauge_tpu_torch import _build
+from decode_tonal_langauge_tpu_torch.ops import gru, lstm, recurrence
 
 
 @pytest.fixture
@@ -151,12 +154,19 @@ def test_vmap_over_three_seeds_equals_three_calls(keep):
         assert torch.equal(back[1][k], one[1]) and torch.equal(back[2][k], one[2])
 
 
-def test_vmap_unbatched_weight_is_broadcast():
-    """A weight vmap does not batch is read by every seed."""
+@pytest.mark.parametrize("recurrence", ["lstm_scan", "gru_scan"])
+def test_vmap_unbatched_weight_is_broadcast(recurrence):
+    """A weight vmap does not batch is read by every seed: the seed-axis
+    rule of ``ops/recurrence.py``, which both recurrences' scans share."""
     xg, h0, c0, wh, _ = _inputs(3, 2, 3, 4, torch.float64)
-    got = torch.func.vmap(lambda x, h, c: lstm.lstm_scan(x, h, c, wh[:1], False)[0])(
-        xg[:, None], h0[:, None], c0[:, None])
-    want = lstm.lstm_scan(xg, h0, c0, wh[:1].expand(3, -1, -1), False)[0]
+    if recurrence == "lstm_scan":
+        batched, weights = (xg, h0, c0), (wh[:1],)
+        scan = lambda *a: lstm.lstm_scan(*a, False)[0]  # noqa: E731
+    else:  # xg (S, B, T, 3H), wt (S, H, 3H), bh (S, 3H)
+        batched, weights = (xg[..., :12],), (wh[:1, :, :12], h0[:1, 0].repeat(1, 3))
+        scan = lambda *a: gru.gru_scan(*a, False)[0]  # noqa: E731
+    got = torch.func.vmap(lambda *b: scan(*b, *weights))(*(x[:, None] for x in batched))
+    want = scan(*batched, *(w.expand(3, *w.shape[1:]) for w in weights))
     assert torch.equal(got[:, :, 0], want.transpose(0, 1))
 
 
@@ -234,6 +244,21 @@ def test_step_ops_run_the_plain_steps_on_cpu():
     lstm._delta_init_plain(d_h, outs[1], c0, gates[0], dcs[1], das[1])
     assert torch.equal(das[0], das[1]) and torch.equal(dcs[0], dcs[1])
     assert (lstm.FORWARD_LAUNCHES, lstm.REVERSE_LAUNCHES, lstm.DELTA_LAUNCHES) == before
+
+
+def test_kernel_boundary_raises_with_what_failed():
+    """The checks every kernel's launch passes through (``_build.py``,
+    ``ops/recurrence.py``): operands the kernels do not take, and a launch
+    that returned a CUDA error, named with the launch and its sizes."""
+    xg, h0, c0, wh, _ = _inputs(1, 2, 1, 4, torch.float32)
+    with pytest.raises(ValueError, match="^lstm step kernel: every operand on one CUDA device$"):
+        recurrence.kernel_dtype("lstm step kernel", h0, wh, c0)
+    with pytest.raises(TypeError, match="^gru step kernel: float32, float64 or bfloat16"):
+        recurrence.kernel_dtype("gru step kernel", h0, wh.half())
+    _build.launched(0, "lstm_step forward", "S, B, H = {}", (1, 2, 4))
+    with pytest.raises(RuntimeError, match=r"^lstm_step forward launch failed: cudaError_t 700 "
+                                           r"\(S, B, H = \(1, 2, 4\)\)$"):
+        _build.launched(700, "lstm_step forward", "S, B, H = {}", (1, 2, 4))
 
 
 # -- the card: kernels against the plain versions ---------------------------
