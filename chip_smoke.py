@@ -43,6 +43,17 @@ present, or when the port's sources are not beside it.
    counts K4's launches with K2's (``k4_reset``, in ``k2_record``): they
    must equal the NAdam steps taken on the card, counted at
    ``NAdam.step``; they go on the kernels line as K4's ``phase_launches``.
+   Audio phase: ``utils/audio.mels_to_audio`` at the real-time stream's
+   shape (batch 1, 128 mels x 20 frames, sr 24414, ``n_fft`` 2048, hop
+   512, 32 iterations, a fixed phase) and at batch 3: its three first
+   calls (eager, capture and replay, replay) against the public
+   functions' eager ops on the card, bit for bit, and its counters; the
+   host ms of a call by those eager ops, by the plan's eager call and by
+   a replay, in turns (median of 30 each); each graph's device ms and
+   launches a replay, and the eager ops' (``torch.profiler``); and in a
+   trace with the host's ops, how many of a replayed call's device
+   events carry a host op's id, through ``tonal::graph_replay`` and for
+   bare ``CUDAGraph.replay`` calls.
 3. Preprocess phase: the stage's entry point ``preprocess.main.run`` on
    the card over one subject of two blocks, each 128 channels x 60 s of
    seeded noise plus a passthrough audio track, at 3052 Hz (the polyphase
@@ -618,6 +629,115 @@ def k4_phase(card: str) -> dict:
             "replaces": None,  # no Pallas kernel: the JAX package leaves optax's NAdam to XLA
             "counterpart": "decode_tonal_langauge_tpu/training/optim.py (optax nadam)",
             "launches": optim.LAUNCHES - launches0, "max_abs_err": 0.0, "shapes": rows}
+
+
+AUDIO_SHAPE = dict(n_mels=128, audio_sampling_rate=24414, n_fft=2048, hop_length=512,
+                   n_iter=32)  # the real-time stream cell's mels_to_audio call
+AUDIO_FRAMES = 20
+
+
+def audio_eager(mels: np.ndarray, phase):
+    """``mels_to_audio``'s eager ops by the public functions (the basis,
+    its NNLS constants and the window rebuilt), waveforms on the host."""
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.ops import griffinlim as gl
+    from decode_tonal_langauge_tpu_torch.ops import stft
+
+    a = AUDIO_SHAPE
+    mel = torch.tensor(mels.reshape(len(mels), a["n_mels"], -1), device="cuda")
+    basis = torch.as_tensor(stft.mel_filterbank(a["audio_sampling_rate"], a["n_fft"],
+                                                a["n_mels"]), dtype=torch.float32, device="cuda")
+    S_mag = gl.mel_to_stft_mag(stft.db_to_power(mel, ref=0.0001), basis)
+    return gl.griffinlim(S_mag, n_fft=a["n_fft"], hop_length=a["hop_length"], n_iter=a["n_iter"],
+                         init_phase=phase).cpu().numpy()
+
+
+def graph_attribution(fn) -> tuple:
+    """(device events, those whose ``External id`` is a host op's) in a
+    trace of one call of ``fn`` with the host's ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    ops = {e["args"]["External id"] for e in events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return len(device), sum(e.get("args", {}).get("External id") in ops for e in device)
+
+
+def audio_phase(card: str) -> dict:
+    """The audio layer's plan on the card (see the module's docstring)."""
+    import statistics
+
+    import torch
+
+    from decode_tonal_langauge_tpu_torch.runtime.profiling import device_events
+    from decode_tonal_langauge_tpu_torch.utils import audio
+
+    a = AUDIO_SHAPE
+    rng = np.random.default_rng(21)
+    phase = torch.as_tensor(rng.uniform(-np.pi, np.pi, (1 + a["n_fft"] // 2, AUDIO_FRAMES)),
+                            dtype=torch.float32, device="cuda")
+    call = lambda m: audio.mels_to_audio(m, init_phase=phase, device="cuda", **a)  # noqa: E731
+    out = {"card": card}
+    for batch in (3, 1):
+        audio.release_plans()
+        mels = rng.normal(-40.0, 12.0, (batch, a["n_mels"] * AUDIO_FRAMES)).astype(np.float32)
+        want = audio_eager(mels, phase)
+        counts0 = (audio.EAGER_CALLS, audio.GRAPH_CAPTURES, audio.GRAPH_REPLAYS)
+        steps = []
+        for i in range(3):
+            got = call(mels)
+            check(np.array_equal(got, want), f"audio batch {batch}: call {i + 1} differs from the "
+                  f"eager ops by {np.abs(got - want).max():.3g}")
+            steps.append(tuple(x - y for x, y in zip(
+                (audio.EAGER_CALLS, audio.GRAPH_CAPTURES, audio.GRAPH_REPLAYS), counts0)))
+        check(steps == [(1, 0, 0), (1, 1, 1), (1, 1, 2)], f"audio counters: {steps}")
+        print(f"audio batch {batch}: eager, capture + replay, replay equal the eager ops bit for "
+              f"bit; counters (eager, captures, replays) {steps}")
+    plan = next(iter(audio._PLANS.values()))
+    mels3 = mels.reshape(1, a["n_mels"], -1)
+    runs = {"eager_ops": lambda: audio_eager(mels, phase),
+            "plan_eager": lambda: plan.eager(mels3, phase), "replay": lambda: call(mels)}
+    times = {k: [] for k in runs}
+    for _ in range(15):  # in turns: each name twice a round, the order mirrored
+        for name in ("eager_ops", "plan_eager", "replay", "replay", "plan_eager", "eager_ops"):
+            t0 = time.perf_counter()
+            runs[name]()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    out["host_ms"] = {k: statistics.median(v) for k, v in times.items()}
+    out["host_ms_quartiles"] = {k: statistics.quantiles(v, n=4) for k, v in times.items()}
+    g = plan.graphs
+    nnls, gl = g.nnls, g.griffinlim
+    for name, fn in (("nnls_graph", lambda: torch.ops.tonal.graph_replay(g.S_mag, id(nnls))),
+                     ("griffinlim_graph", lambda: torch.ops.tonal.graph_replay(g.wave, id(gl))),
+                     ("eager_ops", runs["eager_ops"])):
+        events = device_events(fn, 10)
+        out[name] = {"device_ms": sum(ms for ms, _, _ in events),
+                     "launches": sum(c for _, c, _ in events),
+                     "top": [[n[:80], ms] for ms, _, n in events[:4]]}
+    out["attributed"] = {"graph_replay_op": graph_attribution(runs["replay"]),
+                         "bare_replay": graph_attribution(lambda: (nnls.replay(), gl.replay()))}
+    print(f"audio at the stream's shape, host ms a call (median of 30; quartiles "
+          f"{out['host_ms_quartiles']}): eager ops {out['host_ms']['eager_ops']:.3f}, the plan's "
+          f"eager call {out['host_ms']['plan_eager']:.3f}, replay {out['host_ms']['replay']:.3f} "
+          f"[{card}]")
+    for name in ("nnls_graph", "griffinlim_graph", "eager_ops"):
+        print(f"audio {name}: {out[name]['device_ms']:.4f} device ms, {out[name]['launches']:g} "
+              f"launches a call; top {out[name]['top']}")
+    print(f"audio trace (device events, with a host op's id): a replayed call "
+          f"{out['attributed']['graph_replay_op']}, bare replays {out['attributed']['bare_replay']}")
+    audio.release_plans()
+    print("audio phase:", json.dumps(out))
+    return out
 
 
 # K2's launches in each phase after its own (the kernels line's
@@ -3806,6 +3926,7 @@ def main() -> None:
 
     kernels = [timed(k1_phase, card), timed(k2_phase, card), timed(k3_phase, card),
                timed(k4_phase, card)]
+    timed(audio_phase, card)
     timed(preprocess_phase, card)
     timed(training_phase, card)
     timed(seed_parallel_phase, card)

@@ -68,9 +68,31 @@ def mel_filterbank(
     return weights * enorm[:, None]
 
 
+def hann(n_fft: int, dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """:func:`hann_window` as a tensor of ``dtype`` on ``device``."""
+    return torch.as_tensor(hann_window(n_fft), dtype=dtype, device=device)
+
+
 def _window(n_fft: int, like: torch.Tensor) -> torch.Tensor:
     dtype = like.real.dtype if like.is_complex() else like.dtype
-    return torch.as_tensor(hann_window(n_fft), dtype=dtype, device=like.device)
+    return hann(n_fft, dtype, like.device)
+
+
+def _overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
+    """(N, n_frames, n_fft) -> (N, n_fft + hop_length * (n_frames - 1))."""
+    n, n_frames, n_fft = frames.shape
+    total = n_fft + hop_length * (n_frames - 1)
+    out = F.fold(frames.transpose(1, 2), output_size=(1, total),
+                 kernel_size=(1, n_fft), stride=(1, hop_length))
+    return out.reshape(n, total)
+
+
+def nola_sum(window: torch.Tensor, hop_length: int, n_frames: int) -> torch.Tensor:
+    """What :func:`istft` divides by: the squared window overlap-added
+    over ``n_frames`` frames, clamped at 1e-10."""
+    n_fft = window.shape[-1]
+    wsum = _overlap_add((window ** 2).expand(1, n_frames, n_fft), hop_length)[0]
+    return torch.clamp(wsum, min=1e-10)
 
 
 def stft(
@@ -78,9 +100,17 @@ def stft(
     center: bool = True,
 ) -> torch.Tensor:
     """Complex STFT (..., T) -> (..., 1 + n_fft//2, n_frames)."""
+    return windowed_stft(y, _window(n_fft, y), hop_length, center)
+
+
+def windowed_stft(
+    y: torch.Tensor, window: torch.Tensor, hop_length: int = 512, center: bool = True,
+) -> torch.Tensor:
+    """:func:`stft` with its window given (``n_fft`` is its length)."""
+    n_fft = window.shape[-1]
     if center:
         y = F.pad(y, (n_fft // 2, n_fft // 2))  # zero pad, as stft.py:101
-    frames = y.unfold(-1, n_fft, hop_length) * _window(n_fft, y)
+    frames = y.unfold(-1, n_fft, hop_length) * window
     return torch.fft.rfft(frames, dim=-1).transpose(-1, -2)
 
 
@@ -100,19 +130,21 @@ def istft(
     """Inverse STFT (center=True) with Hann-window NOLA normalisation:
     (..., 1 + n_fft//2, n_frames) -> (..., n_samples)."""
     window = _window(n_fft, X)
+    return windowed_istft(X, window, nola_sum(window, hop_length, X.shape[-1]),
+                          hop_length, length)
+
+
+def windowed_istft(
+    X: torch.Tensor, window: torch.Tensor, wsum: torch.Tensor, hop_length: int = 512,
+    length: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`istft` with its window and its :func:`nola_sum` given."""
+    n_fft = window.shape[-1]
     frames = torch.fft.irfft(X.transpose(-1, -2), n=n_fft, dim=-1) * window
     lead, n_frames = frames.shape[:-2], frames.shape[-2]
-    total = n_fft + hop_length * (n_frames - 1)
-
-    def overlap_add(f):  # (N, n_frames, n_fft) -> (N, total)
-        out = F.fold(f.transpose(1, 2), output_size=(1, total),
-                     kernel_size=(1, n_fft), stride=(1, hop_length))
-        return out.reshape(f.shape[0], total)
-
-    y = overlap_add(frames.reshape(-1, n_frames, n_fft)).reshape(lead + (total,))
-    wsum = overlap_add((window ** 2).expand(1, n_frames, n_fft))[0]
-    y = y / torch.clamp(wsum, min=1e-10)
-    y = y[..., n_fft // 2 : total - n_fft // 2]
+    y = _overlap_add(frames.reshape(-1, n_frames, n_fft), hop_length)
+    y = y.reshape(lead + y.shape[-1:]) / wsum
+    y = y[..., n_fft // 2 : y.shape[-1] - n_fft // 2]
     if length is not None:
         if y.shape[-1] < length:
             # The analysis dropped a partial tail frame; zero-fill it.

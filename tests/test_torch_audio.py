@@ -161,3 +161,206 @@ def test_write_wav(tmp_path):
 
     sr, data = wavfile.read(tmp_path / "t.wav")
     assert sr == SR and len(data) == 4096 and data.dtype == np.int16
+
+
+# ----------------------------------------------------------------------
+# The card's plan for mels_to_audio builds the mel basis, its NNLS
+# constants, the Hann window and the NOLA sum once and runs the solve and
+# Griffin-Lim over them. Here, on the CPU, those ops against the formulas
+# the port ran before it had the plan (copied below), bit for bit.
+
+def _before_window(n_fft, like):
+    dtype = like.real.dtype if like.is_complex() else like.dtype
+    return torch.as_tensor(tstft.hann_window(n_fft), dtype=dtype, device=like.device)
+
+
+def _before_stft(y, n_fft, hop_length):
+    y = torch.nn.functional.pad(y, (n_fft // 2, n_fft // 2))
+    frames = y.unfold(-1, n_fft, hop_length) * _before_window(n_fft, y)
+    return torch.fft.rfft(frames, dim=-1).transpose(-1, -2)
+
+
+def _before_istft(X, n_fft, hop_length, length=None):
+    window = _before_window(n_fft, X)
+    frames = torch.fft.irfft(X.transpose(-1, -2), n=n_fft, dim=-1) * window
+    lead, n_frames = frames.shape[:-2], frames.shape[-2]
+    total = n_fft + hop_length * (n_frames - 1)
+
+    def overlap_add(f):
+        out = torch.nn.functional.fold(f.transpose(1, 2), output_size=(1, total),
+                                       kernel_size=(1, n_fft), stride=(1, hop_length))
+        return out.reshape(f.shape[0], total)
+
+    y = overlap_add(frames.reshape(-1, n_frames, n_fft)).reshape(lead + (total,))
+    wsum = overlap_add((window ** 2).expand(1, n_frames, n_fft))[0]
+    y = y / torch.clamp(wsum, min=1e-10)
+    y = y[..., n_fft // 2 : total - n_fft // 2]
+    if length is not None:
+        if y.shape[-1] < length:
+            y = torch.nn.functional.pad(y, (0, length - y.shape[-1]))
+        y = y[..., :length]
+    return y
+
+
+def _before_nnls_project(A, B, n_iter=100):
+    AtA = A.T @ A
+    AtB = A.T @ B
+    v = torch.ones(AtA.shape[0], dtype=A.dtype, device=A.device)
+    v = v / np.sqrt(AtA.shape[0])
+    for _ in range(30):
+        v = AtA @ v
+        v = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-12)
+    step = 1.0 / torch.clamp(v @ (AtA @ v), min=1e-12)
+    rtol = 10.0 * max(A.shape) * torch.finfo(A.dtype).eps
+    X = torch.clamp(torch.linalg.pinv(A, rtol=rtol) @ B, min=0.0)
+    Y = X
+    t = np.float32(1.0)
+    for _ in range(n_iter):
+        X_new = torch.clamp(Y - step * (AtA @ Y - AtB), min=0.0)
+        t_new = np.float32(0.5) * (
+            np.float32(1.0) + np.sqrt(np.float32(1.0) + np.float32(4.0) * t * t))
+        Y = X_new + float((t - 1.0) / t_new) * (X_new - X)
+        X, t = X_new, t_new
+    return X
+
+
+def _before_griffinlim(S_mag, n_fft, hop_length, n_iter, init_phase, length=None,
+                       momentum=0.99):
+    angles = torch.exp(1j * init_phase.to(device=S_mag.device, dtype=torch.float32))
+    S = S_mag.to(torch.complex64)
+    angles = angles.expand(S.shape)
+    tprev = torch.zeros_like(S)
+    for _ in range(n_iter):
+        rebuilt = _before_stft(_before_istft(S * angles, n_fft, hop_length), n_fft, hop_length)
+        new_angles = rebuilt - (momentum / (1.0 + momentum)) * tprev
+        angles = new_angles / torch.clamp(new_angles.abs(), min=1e-16)
+        tprev = rebuilt
+    return _before_istft(S * angles, n_fft, hop_length, length=length)
+
+
+def _before_mels_to_audio(mels, n_mels, sr, n_fft, hop_length, n_iter, init_phase,
+                          mel_in_db=True, power=2.0, length=None):
+    mel = torch.tensor(mels.reshape(mels.shape[0], n_mels, -1))
+    if mel_in_db:
+        mel = tstft.db_to_power(mel, ref=0.0001)
+    basis = torch.as_tensor(tstft.mel_filterbank(sr, n_fft, n_mels), dtype=torch.float32)
+    S_mag = torch.pow(torch.clamp(_before_nnls_project(basis, mel), min=0.0), 1.0 / power)
+    return _before_griffinlim(S_mag, n_fft, hop_length, n_iter, init_phase,
+                              length=length).numpy()
+
+
+def _mels(n=2):
+    return np.stack([jaudio.audio_to_mel(_harmonic(1.0 + 0.2 * i), SR, mel_kwargs=MEL_KW)
+                     for i in range(n)])
+
+
+def _constants_cpu_key():
+    return (torch.device("cpu"), float(SR), 512, 32, 0.0, None)
+
+
+def _constants_cpu():
+    return taudio.constants(*_constants_cpu_key())
+
+
+@pytest.mark.parametrize("length", [None, 4000, 4200])
+def test_stft_and_istft_keep_their_bits(rng, length):
+    y = torch.from_numpy(rng.standard_normal((2, 4096)).astype(np.float32))
+    X = tstft.stft(y, 512, 128)
+    assert torch.equal(X, _before_stft(y, 512, 128))
+    assert torch.equal(tstft.istft(X, 512, 128, length=length),
+                       _before_istft(X, 512, 128, length=length))
+    window = tstft.hann(512)
+    wsum = tstft.nola_sum(window, 128, X.shape[-1])
+    assert torch.equal(tstft.windowed_istft(X, window, wsum, 128, length),
+                       _before_istft(X, 512, 128, length=length))
+
+
+def test_nnls_over_cached_constants_keeps_its_bits():
+    c = _constants_cpu()
+    basis = torch.as_tensor(tstft.mel_filterbank(SR, 512, 32), dtype=torch.float32)
+    assert torch.equal(c.basis, basis)
+    assert torch.equal(c.window, _before_window(512, basis))
+    mel = tstft.db_to_power(torch.from_numpy(_mels().reshape(2, 32, -1)), ref=0.0001)
+    before = _before_nnls_project(basis, mel)
+    assert torch.equal(tgl.nnls_project(basis, mel), before)
+    assert torch.equal(tgl.nnls_solve(c.basis, mel, c.nnls), before)
+    assert _constants_cpu() is c  # built once
+
+
+@pytest.mark.parametrize("length", [None, 4096])
+def test_griffinlim_over_cached_window_keeps_its_bits(length):
+    S_mag = tstft.stft(torch.from_numpy(np.stack([_harmonic(), _harmonic(0.5)])),
+                       512, 128).abs()
+    phase = torch.from_numpy(_jax_phase(*S_mag.shape[-2:]))
+    before = _before_griffinlim(S_mag, 512, 128, 8, phase, length=length)
+    assert torch.equal(tgl.griffinlim(S_mag, n_fft=512, hop_length=128, n_iter=8,
+                                      length=length, init_phase=phase), before)
+    c = _constants_cpu()
+    wsum = tstft.nola_sum(c.window, 128, S_mag.shape[-1])
+    assert torch.equal(tgl.griffinlim_windowed(S_mag, phase, c.window, wsum, 128, 8,
+                                               length=length), before)
+
+
+@pytest.mark.parametrize("mel_in_db,power", [(True, 2.0), (False, 1.0)])
+def test_mels_to_audio_and_the_plan_body_keep_their_bits(mel_in_db, power):
+    mels = _mels(3)
+    if not mel_in_db:
+        mels = np.abs(mels) / 80.0
+    phase = torch.from_numpy(_jax_phase(257, mels.shape[1] // 32))
+    kw = dict(n_fft=512, hop_length=128, n_iter=8, mel_in_db=mel_in_db, power=power)
+    before = _before_mels_to_audio(mels, 32, SR, init_phase=phase, **kw)
+    ours = taudio.mels_to_audio(mels, n_mels=32, audio_sampling_rate=SR, init_phase=phase,
+                                device="cpu", **kw)
+    np.testing.assert_array_equal(ours, before)
+    # the card's eager call and its graphs run these ops, in this order
+    key = taudio.plan_key("cpu", (3, 32, mels.shape[1] // 32), SR, mel_in_db, 512, 128, 0.0,
+                          None, power, 8, None, phase.shape)
+    c = taudio.constants(*key.constants)
+    S_mag = taudio._nnls(key, c, torch.from_numpy(mels.reshape(3, 32, -1)))
+    wsum = tstft.nola_sum(c.window, 128, key.shape[-1])
+    np.testing.assert_array_equal(taudio._griffinlim(key, c, wsum, S_mag, phase).numpy(),
+                                  before)
+
+
+def test_mels_to_audio_on_the_cpu_never_captures():
+    mels = _mels(1)
+    kw = dict(n_mels=32, audio_sampling_rate=SR, n_fft=512, hop_length=128, n_iter=2,
+              device="cpu")
+    counts = (taudio.EAGER_CALLS, taudio.GRAPH_CAPTURES, taudio.GRAPH_REPLAYS)
+    for _ in range(3):
+        taudio.mels_to_audio(mels, **kw)
+    assert (taudio.EAGER_CALLS, taudio.GRAPH_CAPTURES, taudio.GRAPH_REPLAYS) == (
+        counts[0] + 3, counts[1], counts[2])
+    assert not taudio._PLANS and not taudio._GRAPHS
+
+
+_KEY_BASE = dict(device="cpu", shape=(1, 128, 20), audio_sampling_rate=24414, mel_in_db=True,
+                 n_fft=2048, hop_length=512, fmin=0.0, fmax=None, power=2.0, n_iter=32,
+                 length=None, phase_shape=(1025, 20))
+
+
+@pytest.mark.parametrize("change,of_constants", [
+    (dict(device="cuda"), True),
+    (dict(shape=(3, 128, 20)), False),
+    (dict(shape=(1, 64, 40), phase_shape=(1025, 40)), True),
+    (dict(shape=(1, 128, 21)), False),
+    (dict(audio_sampling_rate=16000), True),
+    (dict(mel_in_db=False), False),
+    (dict(n_fft=1024), True),
+    (dict(hop_length=256), False),
+    (dict(fmin=50.0), True),
+    (dict(fmax=8000.0), True),
+    (dict(power=1.0), False),
+    (dict(n_iter=16), False),
+    (dict(length=9728), False),
+    (dict(phase_shape=(1, 1025, 20)), False),
+])
+def test_plan_key_separates_every_keyed_parameter(change, of_constants):
+    base = taudio.plan_key(**_KEY_BASE)
+    other = taudio.plan_key(**dict(_KEY_BASE, **change))
+    assert other != base and hash(other) != hash(base)
+    assert (other.constants != base.constants) == of_constants
+    assert taudio.plan_key(**_KEY_BASE) == base
+    # an int rate and its float, or a numpy shape, are the same call
+    assert taudio.plan_key(**dict(_KEY_BASE, audio_sampling_rate=24414.0,
+                                  shape=np.array([1, 128, 20]))) == base
